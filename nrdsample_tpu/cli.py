@@ -108,9 +108,6 @@ def cmd_render(args) -> int:
         file=sys.stderr,
     )
 
-    # monolithic jit: the staged gather-pass frame is faster in isolation but
-    # trips a libtpu-runtime gather-emitter degradation once any other
-    # program runs (see make_staged_frame docstring); monolithic is immune
     frame_fn = frame_mod.make_jitted_frame(ctx, cfg)
     history = frame_mod.History.create(cfg)
     t0 = time.perf_counter()
@@ -426,6 +423,9 @@ def main(argv=None) -> int:
     b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
+    from nrdsample_tpu.platform import setup_compile_cache
+
+    setup_compile_cache()
     return args.fn(args)
 
 

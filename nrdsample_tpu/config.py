@@ -1,4 +1,4 @@
-"""Configuration tiers — the TPU-native equivalent of the reference's 3-tier config.
+"""Configuration tiers — the JAX equivalent of the reference's 3-tier config.
 
 Reference (SURVEY.md §5.6): compile-time macros + constants live in
 ``Shaders/Shared.hlsli:7-150``, CLI flags in ``Source/NRDSample.cpp:533-541``, and the
@@ -140,7 +140,7 @@ FLAG_HAIR = 0x10
 FLAG_LEAF = 0x20
 FLAG_SKIN = 0x40
 FLAG_MORPH = 0x80
-# TPU-side extension bit: material demands the any-hit alpha test
+# extension bit: material demands the any-hit alpha test
 # (the reference expresses this as a non-opaque TLAS instance flag consumed by
 # CheckNonOpaqueTriangle, RaytracingShared.hlsli:191-247)
 FLAG_ALPHA_TEST = 0x100

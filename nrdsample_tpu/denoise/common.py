@@ -18,9 +18,8 @@ from nrdsample_tpu.mathlib import filtering
 def shifted(img: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
     """Clamped-edge shifted view of [H, W, ...]: out[y, x] = img[y+dy, x+dx].
 
-    Implemented as edge-pad + STATIC slice (not gather): on TPU a clipped-iota
-    gather lowers to a serial dynamic-gather loop ~20x slower than the fused
-    pad+slice form, which XLA folds into the consuming elementwise op.
+    Implemented as edge-pad + STATIC slice (not gather), which XLA folds into
+    the consuming elementwise op.
     """
     h, w = img.shape[0], img.shape[1]
     pt, pb = max(-dy, 0), max(dy, 0)
@@ -74,22 +73,12 @@ def pixel_positions(h: int, w: int) -> jnp.ndarray:
 def reproject(prev: jnp.ndarray, mv_xy: jnp.ndarray, bicubic: bool = False) -> jnp.ndarray:
     """Sample the previous-frame image at cur + mv (bilinear or 5-tap bicubic).
 
-    prev: [H, W, C]; mv_xy: [H, W, 2] in pixels. Uses the robust tap gathers —
-    safe in any program; the staged frame pre-gathers with the fast block form
-    instead (denoise/gatherpass.py).
+    prev: [H, W, C]; mv_xy: [H, W, 2] in pixels. Clamp-to-edge tap gathers.
     """
     pos = pixel_positions(prev.shape[0], prev.shape[1]) + mv_xy
-    from nrdsample_tpu.ops import reproject as repr_mod
-
     if bicubic:
-        # the 5-tap bicubic decomposes into 5 bilinear taps; each tap's
-        # displacement is mv +- 2.5 px, so the Pallas bounded-displacement
-        # stencil covers it on TPU (TAA history was 361 ms at 1080p on the
-        # robust gather emitter, ~10 ms on the stencil path)
-        return filtering.sample_bicubic_no_corners(
-            prev, pos, bilinear_fn=repr_mod.sample_bilinear_auto
-        )
-    return repr_mod.sample_bilinear_auto(prev, pos)
+        return filtering.sample_bicubic_no_corners(prev, pos)
+    return filtering.sample_bilinear(prev, pos)
 
 
 def anti_firefly(img: jnp.ndarray) -> jnp.ndarray:
@@ -116,13 +105,12 @@ def reproject_many(planes: list, mv_xy: jnp.ndarray) -> list:
     """Reproject several history planes with ONE packed bilinear sample.
 
     Each separate reproject costs 4 XLA gathers; packing the planes into one
-    (H, W, sum C) array first makes it 4 gathers TOTAL (the same wide-gather
-    trick as the traversal sort path — measured ~3x on the denoiser stack).
+    (H, W, sum C) array first makes it 4 gathers TOTAL.
     planes: list of (H, W) or (H, W, C); returns same-shape reprojections.
 
-    NOTE: the production denoisers now plan packed gathers explicitly
-    (taccum_requests / requests) so the staged gather pass can run them with
-    the fast block emitter; this helper remains for ad-hoc reprojection.
+    NOTE: the production denoisers plan packed gathers explicitly
+    (taccum_requests / requests, see denoise/gatherpass.py); this helper
+    remains for ad-hoc reprojection.
     """
     chans = []
     shapes = []

@@ -7,12 +7,14 @@ re-modulate with material factors, fold direct in, debug view switch.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from nrdsample_tpu import config as cfgmod
 from nrdsample_tpu.config import OnScreen
 
 
+@jax.named_scope("compose")
 def compose(gb: dict, diff_radiance: jnp.ndarray, spec_radiance: jnp.ndarray,
             shadow: jnp.ndarray) -> jnp.ndarray:
     """Combine denoised signals into the final HDR radiance [N, 3].

@@ -1,14 +1,11 @@
 """The gather pass — history reprojection as its own pipeline stage.
 
 The reference samples history textures with the GPU's hardware gather from
-inside each denoiser pass (e.g. Taa.cs.hlsl:122-123). XLA:TPU has an
-equivalent HBM-speed block-gather emitter, but it only engages for programs
-that are (almost) pure gathers; embedding the same gather in a full denoiser
-program degrades it ~5000x to a serial loop (measured, tools/
-profile_taccum14-23.py). So the TPU-native frame graph hoists ALL history
-gathers into one dedicated jit program between the "plan" stage (elementwise:
-sample positions, packed planes) and the "finish" stage (elementwise/stencil:
-blends, a-trous chains).
+inside each denoiser pass (e.g. Taa.cs.hlsl:122-123). This module can instead
+hoist ALL history gathers into one dedicated jit program between the "plan"
+stage (elementwise: sample positions, packed planes) and the "finish" stage
+(elementwise/stencil: blends, a-trous chains); pipeline/frame.py's
+`make_staged_frame` uses it. The production frame gathers inline.
 
 Protocol: each denoiser exposes a ``requests(...)`` function returning
 ``{name: (plane, pos)}`` plus a mode per request ("bilinear" | "bicubic");
@@ -48,19 +45,13 @@ def execute(requests: dict, modes: dict) -> dict:
 
 
 def execute_inline(requests: dict, modes: dict) -> dict:
-    """Reference path: the same requests inline in a monolithic program.
-
-    Bilinear requests ride the tiered Pallas bounded-displacement stencil on
-    TPU (ops/reproject.sample_bilinear_auto); bicubic requests decompose into
-    5 such taps (the taa_pallas trick) — the robust XLA tap emitter that
-    previously served the bicubic here dominated REBLUR's in-frame cost."""
-    from nrdsample_tpu.ops import reproject as repr_mod
-
+    """Reference path: the same requests inline in a monolithic program,
+    with the clamp-to-edge tap gathers."""
     out = {}
     for name in sorted(requests):
         plane, pos = requests[name]
         if modes[name] == BICUBIC:
-            out[name] = repr_mod.sample_bicubic_auto(plane, pos)
+            out[name] = filtering.sample_bicubic_no_corners(plane, pos)
         else:
-            out[name] = repr_mod.sample_bilinear_auto(plane, pos)
+            out[name] = filtering.sample_bilinear(plane, pos)
     return out

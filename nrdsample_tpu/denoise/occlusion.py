@@ -8,7 +8,7 @@ front-end pack), the denoiser runs the *_OCCLUSION variants
 (Composition.cs.hlsl:127-168). DIRECTIONAL_OCCLUSION additionally packs the
 first-bounce direction and resolves a bent-normal AO (SH variant).
 
-TPU-native: occlusion is a 1-channel image-plane; the REBLUR/RELAX stencil
+Layout: occlusion is a 1-channel image-plane; the REBLUR/RELAX stencil
 machinery is reused by expanding to the stencil's channel layout.
 """
 

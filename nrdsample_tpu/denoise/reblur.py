@@ -137,8 +137,7 @@ _BLUR_STEPS = (1, 2, 4, 8)
 def adaptive_blur(illum, hitdist, view_z, normal, roughness, frames, frame_idx,
                   s: ReblurSettings, is_spec: bool, unproject: float):
     """Adaptive-radius bilateral blur as a reach-budgeted dilated 3x3 chain —
-    STATIC shifts only (the TPU-native form; same rework that took SIGMA
-    584 -> 6 ms at 1080p). The per-pixel radius is a cumulative kernel-reach
+    STATIC shifts only (the same form as SIGMA's penumbra blur). The per-pixel radius is a cumulative kernel-reach
     budget: pass `step` engages with gate clip(remaining/step, 0, 1) and
     consumes gate*step, so total kernel half-width tracks the adaptive radius
     exactly like the Poisson form's disk radius did, while staying a fused
@@ -304,6 +303,7 @@ def stabilize(blurred, fast, frames, s: ReblurSettings):
     return clamped, frames_out
 
 
+@jax.named_scope("reblur")
 def denoise(hist: ReblurHistory, illum, hitdist, view_z, normal, roughness, mv,
             frame_idx, unproject: float, s: ReblurSettings = ReblurSettings(),
             is_spec: bool = False, reset=False, confidence=None, pre=None):

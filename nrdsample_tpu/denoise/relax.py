@@ -12,8 +12,8 @@ says: validate behaviorally, not bit-exactly):
   3. N à-trous wavelet iterations (5x5, powers-of-two steps) with
      depth/normal/luminance edge-stopping; variance filtered alongside.
 
-All stencils are static-shift stacks (clamped edges) — pure VPU work under XLA,
-sharding-friendly (halo exchange is inserted by GSPMD when H is sharded).
+All stencils are static-shift stacks (clamped edges) — elementwise work that
+XLA fuses, sharding-friendly (halo exchange is inserted by GSPMD when H is sharded).
 """
 
 from __future__ import annotations
@@ -82,10 +82,10 @@ def temporal_accumulate(hist: RelaxHistory, illum, view_z, normal, mv,
     h, w = view_z.shape
     mv_xy = mv[..., :2]
     if pre is None:
-        plane, pos = taccum_requests(hist, mv_xy)
-        from nrdsample_tpu.ops import reproject as repr_mod
+        from nrdsample_tpu.mathlib import filtering
 
-        pre = repr_mod.sample_bilinear_auto(plane, pos)
+        plane, pos = taccum_requests(hist, mv_xy)
+        pre = filtering.sample_bilinear(plane, pos)
     prev_illum, prev_moments = pre[..., 0:3], pre[..., 3:5]
     prev_z, prev_n, prev_frames = pre[..., 5], pre[..., 6:9], pre[..., 9]
 
@@ -187,6 +187,7 @@ def atrous_iteration(illum, variance, view_z, normal, step, s: RelaxSettings,
     return acc * inv[..., None], acc_var * inv * inv
 
 
+@jax.named_scope("relax")
 def denoise(hist: RelaxHistory, illum, view_z, normal, mv,
             s: RelaxSettings = RelaxSettings(), reset=False, confidence=None,
             pre=None):
@@ -196,37 +197,12 @@ def denoise(hist: RelaxHistory, illum, view_z, normal, mv,
     confidence: optional (H, W) [0,1] history-confidence plane.
     pre: optional pre-gathered taccum_requests result (staged gather pass).
     """
-    from nrdsample_tpu.ops.traversal import _tpu_platform
-
-    if _tpu_platform() and pre is None:
-        # fused Pallas taccum: anti-firefly + history gather + disocclusion +
-        # accumulate + variance in ONE pass over row bands (the XLA
-        # composition round-trips ~60 channel planes through HBM;
-        # denoise/taccum_pallas.py)
-        from nrdsample_tpu.denoise import taccum_pallas
-
-        acc_illum, acc_moments, frames, variance = (
-            taccum_pallas.taccum_fused_auto(
-                hist, illum, view_z, normal, mv, s, reset, confidence))
-        new_hist = RelaxHistory(illum=acc_illum, moments=acc_moments,
-                                view_z=view_z, normal=normal, frames=frames)
-    else:
-        if s.enable_anti_firefly:
-            illum = common.anti_firefly(illum)
-        acc_illum, acc_moments, frames, new_hist = temporal_accumulate(
-            hist, illum, view_z, normal, mv, s, reset, confidence, pre=pre
-        )
-        variance = estimate_variance(acc_illum, acc_moments, frames)
-    if _tpu_platform():
-        # fused Pallas stencil chain: one HBM read of the packed plane per
-        # iteration instead of one per tap (denoise/atrous_pallas.py)
-        from nrdsample_tpu.denoise import atrous_pallas
-
-        out, first_out = atrous_pallas.atrous_chain(
-            acc_illum, variance, view_z, normal, s
-        )
-        new_hist = dataclasses.replace(new_hist, illum=first_out)
-        return out, new_hist
+    if s.enable_anti_firefly:
+        illum = common.anti_firefly(illum)
+    acc_illum, acc_moments, frames, new_hist = temporal_accumulate(
+        hist, illum, view_z, normal, mv, s, reset, confidence, pre=pre
+    )
+    variance = estimate_variance(acc_illum, acc_moments, frames)
     # à-trous chain as lax.scan over the dilation steps: one compiled body
     # instead of atrous_iterations unrolled copies (the unrolled form made the
     # full-frame grad graph big enough to stall XLA:CPU/GSPMD compiles)

@@ -41,10 +41,7 @@ class SigmaHistory:
 @dataclasses.dataclass(frozen=True)
 class SigmaSettings:
     max_accumulated_frames: int = 5   # SIGMA keeps history short (shadows move)
-    # 14 (not 16): keeps every Poisson tap inside the d=16 Pallas
-    # bounded-displacement stencil tier (ops/reproject.py) — the robust XLA
-    # gather emitter cost 584 ms for this pass at 1080p
-    max_radius_px: float = 14.0
+    max_radius_px: float = 14.0   # penumbra blur radius cap (pixels)
     phi_depth: float = 1.0
     disocclusion_threshold: float = 0.02
 
@@ -69,10 +66,8 @@ def _blur_radius(shadow_hit_dist, view_z, tan_sun_angular_radius,
 
 def _penumbra_blur(shadow, radius, view_z, s: SigmaSettings):
     """Reach-budgeted dilated 3x3 chain — the penumbra-width blur as STATIC
-    shifts only. The rotated-Poisson gather form cost 584 ms at 1080p on the
-    robust XLA emitter and 117 ms on the d=16 Pallas stencils; this chain is
-    ~15 ms. The per-pixel radius is a kernel-reach BUDGET consumed across
-    passes: each pass's neighbor gate is clip(remaining/step, 0, 1) and the
+    shifts only (a fused stencil pipeline, no gathers). The per-pixel radius
+    is a kernel-reach BUDGET consumed across passes: each pass's neighbor gate is clip(remaining/step, 0, 1) and the
     remaining budget shrinks by gate*step, so the cumulative kernel half-width
     never exceeds the local penumbra half-width. (The previous independent
     per-step gates let four dilated passes compose unconditionally wherever
@@ -115,6 +110,7 @@ def requests(hist: SigmaHistory, shadow, shadow_hit_dist, view_z, mv,
     return {"temporal": (t_plane, t_pos)}
 
 
+@jax.named_scope("sigma")
 def denoise(hist: SigmaHistory, shadow, shadow_hit_dist, view_z, mv,
             tan_sun_angular_radius, unproject: float, frame_idx,
             s: SigmaSettings = SigmaSettings(), reset=False, pre=None):
@@ -122,16 +118,15 @@ def denoise(hist: SigmaHistory, shadow, shadow_hit_dist, view_z, mv,
     (0 where unshadowed). Returns (denoised shadow, new history).
 
     pre: optional pre-gathered {'temporal': (H,W,2)} from the staged gather
-    pass; when None the temporal gather runs in-program (Pallas bounded
-    stencil on TPU, robust taps off-TPU)."""
+    pass; when None the temporal gather runs in-program."""
     h, w = view_z.shape
     if pre is None:
-        from nrdsample_tpu.ops import reproject as repr_mod
+        from nrdsample_tpu.mathlib import filtering
 
         t_plane, t_pos = requests(
             hist, shadow, shadow_hit_dist, view_z, mv,
             tan_sun_angular_radius, unproject, frame_idx, s)["temporal"]
-        pre = {"temporal": repr_mod.sample_bilinear_auto(t_plane, t_pos)}
+        pre = {"temporal": filtering.sample_bilinear(t_plane, t_pos)}
 
     radius = _blur_radius(
         shadow_hit_dist, view_z, tan_sun_angular_radius, unproject, s

@@ -54,8 +54,7 @@ def requests(hist: TaaHistory, mv: jnp.ndarray, view_z: jnp.ndarray):
 def resolve_tail(cur, prev, mv_d, wide_mask, reset_mix,
                  sigma_scale: float, base_mix: float):
     """Post-gather TAA stage: neighborhood moments, variance clamp,
-    CIELAB-JND mix (Taa.cs.hlsl:56-147). Pure XLA reference — the Pallas
-    kernel (denoise/taa_pallas.py) fuses exactly this. wide_mask: (H, W)
+    CIELAB-JND mix (Taa.cs.hlsl:56-147). wide_mask: (H, W)
     float (>0.5 = wide) or None; reset_mix: (H, W) float in {0, 1}."""
     h, w = cur.shape[:2]
     mu = jnp.zeros_like(cur)
@@ -124,6 +123,7 @@ def debug_weight(hist: TaaHistory, cur, mv, view_z, wide_mask=None,
     return jnp.where(hist.valid == 0, 1.0, mix)
 
 
+@jax.named_scope("taa")
 def apply(hist: TaaHistory, cur: jnp.ndarray, mv: jnp.ndarray, view_z: jnp.ndarray,
           wide_mask: jnp.ndarray | None = None, reset=False,
           base_mix: float = 0.1, pre=None):
@@ -140,16 +140,6 @@ def apply(hist: TaaHistory, cur: jnp.ndarray, mv: jnp.ndarray, view_z: jnp.ndarr
         jnp.where(jnp.logical_or(reset, hist.valid == 0), 1.0, 0.0), (h, w)
     ).astype(cur.dtype)
     wide_f = None if wide_mask is None else wide_mask.astype(cur.dtype)
-
-    from nrdsample_tpu.ops.traversal import _tpu_platform
-
-    if _tpu_platform():
-        from nrdsample_tpu.denoise import taa_pallas
-
-        out = taa_pallas.taa_resolve(
-            cur, prev, mv_d, wide_f, reset_mix,
-            cfgmod.TAA_SIGMA_SCALE, base_mix)
-    else:
-        out = resolve_tail(cur, prev, mv_d, wide_f, reset_mix,
-                           cfgmod.TAA_SIGMA_SCALE, base_mix)
+    out = resolve_tail(cur, prev, mv_d, wide_f, reset_mix,
+                       cfgmod.TAA_SIGMA_SCALE, base_mix)
     return out, TaaHistory(color=out, valid=jnp.int32(1))

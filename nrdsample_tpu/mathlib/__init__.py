@@ -1,4 +1,4 @@
-"""mathlib — the TPU-native equivalent of the reference's MathLib (ml.hlsli).
+"""mathlib — the JAX equivalent of the reference's MathLib (ml.hlsli).
 
 Pure jnp functions, vectorized over arbitrary leading batch dims; vectors are
 length-3 trailing axes. See SURVEY.md §2.3 "MathLib" row.

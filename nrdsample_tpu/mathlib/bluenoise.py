@@ -7,7 +7,7 @@ sun-shadow disc sample when USE_BLUE_NOISE_FOR_SHADOWS (Shared.hlsli:25,
 high spatial frequencies that SIGMA's penumbra blur (and the eye) average
 away, so soft shadows converge visibly faster at 1 spp.
 
-TPU-native stand-in: a shipped 128x128 void-and-cluster ranking texture
+In-repo stand-in: a shipped 128x128 void-and-cluster ranking texture
 (tools/gen_bluenoise.py, Ulichney's algorithm — no NVIDIA assets) with
 golden-ratio temporal rotation (Cranley-Patterson) and an R2-lattice spatial
 shift per dimension. Each dimension's field keeps the blue spectrum exactly

@@ -5,7 +5,10 @@ Includes CIELAB used by the TAA disocclusion JND test (Taa.cs.hlsl:44-54).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST  # full f32 products (no TF32 on GPUs)
 
 _LUMA = jnp.array([0.2126, 0.7152, 0.0722], jnp.float32)
 
@@ -73,7 +76,7 @@ _WHITE = jnp.array([0.950489, 1.0, 1.088840], jnp.float32)
 
 
 def rgb_to_lab(rgb: jnp.ndarray) -> jnp.ndarray:
-    xyz = jnp.einsum("ij,...j->...i", _RGB2XYZ, jnp.maximum(rgb, 0.0)) / _WHITE
+    xyz = jnp.einsum("ij,...j->...i", _RGB2XYZ, jnp.maximum(rgb, 0.0), precision=_HI) / _WHITE
     f = jnp.where(xyz > 0.008856, jnp.cbrt(jnp.maximum(xyz, 1e-9)), 7.787 * xyz + 16.0 / 116.0)
     l = 116.0 * f[..., 1] - 16.0
     a = 500.0 * (f[..., 0] - f[..., 1])

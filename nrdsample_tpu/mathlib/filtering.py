@@ -3,14 +3,10 @@
 ml.hlsli ``Filtering::GetBilinearFilter`` + Shared.hlsli BicubicFilterNoCorners
 (:349-387). Gathers are the denoisers' reprojection primitive.
 
-TPU note (tools/profile_taccum14-23.py): XLA:TPU has two gather emitters.
-``sample_bilinear`` (four single-texel gathers) is ROBUST — ~15 ns/texel in
-any program shape. ``sample_bilinear_block`` (one (2,2,C) footprint gather)
-runs at HBM speed (~50x faster) but ONLY inside programs that contain almost
-nothing else; in richer programs the backend stops pattern-matching it to the
-hardware gather and it degrades to a ~1.9 us/pixel serial loop (570 ms at
-512^2). Use the block form exclusively from dedicated gather-pass programs
-(denoise/gatherpass.py); use the tap form everywhere else.
+Two bilinear forms: ``sample_bilinear`` (four single-texel gathers, used
+inline by every denoiser) and ``sample_bilinear_block`` (one (2,2,C)
+footprint gather, used by the staged gather pass, denoise/gatherpass.py).
+Both clamp to the edge and agree exactly.
 """
 
 from __future__ import annotations
@@ -27,7 +23,7 @@ def _gather2d(img: jnp.ndarray, ix: jnp.ndarray, iy: jnp.ndarray) -> jnp.ndarray
 
 
 def sample_bilinear(img: jnp.ndarray, pos: jnp.ndarray) -> jnp.ndarray:
-    """Bilinear sample via four single-texel gathers (the robust TPU form).
+    """Bilinear sample via four single-texel gathers.
 
     pos [..., 2] = (x, y) in pixel units; clamp-to-edge.
     """
@@ -53,9 +49,7 @@ def sample_bilinear(img: jnp.ndarray, pos: jnp.ndarray) -> jnp.ndarray:
 def sample_bilinear_block(img: jnp.ndarray, pos: jnp.ndarray) -> jnp.ndarray:
     """Bilinear sample as ONE footprint gather (slice_sizes (2, 2, C)).
 
-    XLA:TPU's block-gather emitter runs this at HBM speed (0.06 ms for a
-    512^2 x 10ch reproject vs ~4 ms/tap for the single-texel form) — but only
-    in gather-only programs; see the module docstring. Edge behavior matches
+    Edge behavior matches
     per-tap clamping exactly: the start index is clipped to [0, size-2] and
     the fractional weight saturates to 0/1.
     """
@@ -71,11 +65,8 @@ def sample_bilinear_block(img: jnp.ndarray, pos: jnp.ndarray) -> jnp.ndarray:
     m = 1
     for d in batch:
         m *= d
-    # CRITICAL TPU detail: the whole blend stays in the FLAT (M, 2, 2, C)
-    # index space. Reshaping the gathered block to (H, W, 2, 2, C) first makes
-    # XLA tile the tiny trailing dims (T(1,128)/T(2,128) layouts) and the
-    # slices+copies around them cost ~540 ms at 512^2 x 10ch; the flat form
-    # runs the identical math in 0.09 ms.
+    # the whole blend stays in the FLAT (M, 2, 2, C) index space (no
+    # (H, W, 2, 2, C) intermediate with tiny trailing dims)
     fx = jnp.clip(p[..., 0] - ix.astype(img.dtype), 0.0, 1.0).reshape(m, 1)
     fy = jnp.clip(p[..., 1] - iy.astype(img.dtype), 0.0, 1.0).reshape(m, 1)
     idx = jnp.stack([iy.reshape(-1), ix.reshape(-1)], axis=-1)

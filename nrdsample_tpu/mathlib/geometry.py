@@ -12,6 +12,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+_HI = jax.lax.Precision.HIGHEST  # full f32 products (no TF32 on GPUs)
+
 
 def dot3(a, b):
     return jnp.sum(a * b, axis=-1)
@@ -34,17 +36,17 @@ def cross(a, b):
 
 def affine_transform(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply [..., 4, 4] (or [4,4]) affine matrix to points [..., 3]."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], p, precision=_HI) + m[..., :3, 3]
 
 
 def rotate_vector(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Rotate (no translate) vectors by the upper 3x3 of a 4x4 matrix."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v)
+    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], v, precision=_HI)
 
 
 def project(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Full projective transform -> NDC [..., 3]."""
-    h = jnp.einsum("...ij,...j->...i", m[..., :4, :3], p) + m[..., :4, 3]
+    h = jnp.einsum("...ij,...j->...i", m[..., :4, :3], p, precision=_HI) + m[..., :4, 3]
     return h[..., :3] / jnp.where(jnp.abs(h[..., 3:4]) < 1e-15, 1e-15, h[..., 3:4])
 
 

@@ -1,6 +1,6 @@
 """Unit-vector / value packing — ml.hlsli ``Packing::*`` equivalents.
 
-On TPU we prefer separate float planes over bit-packing (SURVEY.md §7.1), but the
+We prefer separate float planes over bit-packing (SURVEY.md §7.1), but the
 octahedral encoding is still used for compact G-buffer normal storage and for
 parity with the reference's fp16 octahedral normals in PrimitiveData
 (Shared.hlsli:179-181).
@@ -36,7 +36,7 @@ def pack_normal_roughness(n: jnp.ndarray, roughness: jnp.ndarray, material_id: j
     """G-buffer normal+roughness+materialID plane: [..., 4].
 
     The reference packs via NRD_FrontEnd_PackNormalAndRoughness into RGBA8/R10G10B10A2
-    (TraceOpaque.cs.hlsl:636-657); on TPU we keep an f32/bf16 plane: oct.x, oct.y,
+    (TraceOpaque.cs.hlsl:636-657); we keep an f32/bf16 plane: oct.x, oct.y,
     roughness, materialID.
     """
     e = encode_oct(n)

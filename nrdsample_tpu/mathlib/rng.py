@@ -1,6 +1,6 @@
 """Stateless hash-based RNG + low-discrepancy sequences.
 
-TPU-native replacement for the reference's ``Rng::Hash`` (PCG-style per-pixel hash,
+Array-native replacement for the reference's ``Rng::Hash`` (PCG-style per-pixel hash,
 seeded in ``TraceOpaque.cs.hlsl:539`` from (pixelPos, frameIndex)) and the
 ``Sequence::{Bayer4x4, Weyl, Halton, CheckerBoard}`` helpers of ml.hlsli.
 

@@ -26,9 +26,10 @@ def _load(name: str) -> ctypes.CDLL | None:
         return _LIBS[name]
     _LIBS[name] = None
     src = os.path.join(os.path.dirname(__file__), f"{name}.cpp")
+    # built inside the checkout (build/ is git-ignored), never under $HOME
     cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "nrdsample_tpu",
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "build", "native",
     )
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, f"lib{name}.so")

@@ -28,10 +28,9 @@ def _mt_intersect(o, d, p0, e1, e2):
     Backface hits are reported (two-sided, like the reference's opaque traversal
     which does not cull backfaces — RayFlags = PT_RAY_FLAGS = 0).
 
-    LAYOUT: computed component-split (separate x/y/z planes). On TPU the vector
-    unit is 8x128; any op that reduces or broadcasts over a trailing 3-axis runs
-    at 3/128 lane utilization — splitting components keeps every op a full-width
-    2D elementwise op (measured ~50x on the dense intersector)."""
+    LAYOUT: computed component-split (separate x/y/z planes), so every op is
+    a 2D elementwise op with no reduction or broadcast over a trailing
+    3-axis."""
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     p0x, p0y, p0z = p0[..., 0], p0[..., 1], p0[..., 2]
@@ -67,7 +66,7 @@ def _mt_intersect(o, d, p0, e1, e2):
 
 # live-memory budget for one (R_chunk, tile) intersection plane: frame-sized
 # launches (4M+ rays at 1080p with batched shadows) would otherwise
-# materialize an R x tile fusion output measured at 34 GB -> HBM OOM
+# materialize an R x tile fusion output of tens of GB -> device OOM
 _DENSE_BYTES_BUDGET = 256 << 20
 
 
@@ -78,8 +77,8 @@ def intersect_dense(origin: jnp.ndarray, direction: jnp.ndarray,
 
     origin/direction: (R, 3); p0/e1/e2: (T, 3).
     Returns dict(t, u, v, tri) with tri = -1 on miss. The triangle loop is a
-    `lax.scan` over tiles of `tile` triangles so VMEM working sets stay bounded
-    and XLA pipelines the HBM streams; rays chunk via lax.map when the per-tile
+    `lax.scan` over tiles of `tile` triangles so working sets stay bounded;
+    rays chunk via lax.map when the per-tile
     plane would exceed the live-memory budget.
     """
     r = origin.shape[0]

@@ -1,25 +1,27 @@
-"""Packet traversal — the Pallas TPU kernel for ray-cluster intersection.
+"""Packet traversal — the Pallas kernel for ray-cluster intersection.
 
-This is the speed-of-light path for `TraceRayInline` (SURVEY.md §7.3 hard part
-#1). The XLA cluster scan (ops/cluster.py) is limited by (a) batch-wide
-while_loop convergence — every iteration pays for ALL rays until the slowest
-finishes — and (b) per-ray gathers, which run ~20x below HBM peak on TPU.
+This is the hot path of `TraceRayInline` (SURVEY.md §7.3 hard part #1): the
+H100 has no RT cores, so every ray of every scene above
+`traversal.DENSE_CUTOFF` triangles runs through this kernel. The plain XLA
+alternative (`cluster.closest_hit_clustered`) argsorts an (R, C) entry
+matrix per ray chunk and runs a batch-wide `while_loop` until the slowest
+ray finishes; it stays as the test oracle and the CPU path.
 
-Design (classic packet traversal, TPU-shaped):
-  * rays are grouped into BLOCK_RAYS-sized packets (screen-coherent);
+Route: Pallas through Triton (`backend="triton"`), named explicitly.
+
+Design (classic packet traversal):
+  * rays are grouped into BLOCK_RAYS-sized packets (screen-coherent; divergent
+    wavefronts are re-binned by direction octant + origin morton code first);
   * stage 1 (XLA, dense) computes each packet's shared cluster worklist:
     clusters any ray in the packet enters, sorted by packet-min entry distance;
-  * the Pallas kernel runs one grid step per packet. The TPU grid is sequential
-    on the core, so each packet runs its OWN while-loop trip count — divergence
-    costs sum(block counts), not R x max(count). The cluster id per iteration is
-    block-uniform, so triangle fetch is a *dynamic slice* of the VMEM-resident
-    table — no gathers anywhere.
-  * triangle data is component-split (x/y/z planes) so all math is full-lane
-    (BLOCK_RAYS, CLUSTER_SIZE) elementwise VPU work.
-
-Current limit: the triangle table must fit VMEM (~300k tris at 64B/tri eff.);
-larger scenes fall back to the XLA path (HBM-streaming double-buffer variant is
-the follow-up).
+  * the kernel runs ONE program per packet; programs run in parallel on the
+    SMs, and each walks its own worklist in a `while_loop` until the next
+    cluster's entry key lies beyond the packet's farthest current hit. The
+    cluster id is packet-uniform, so each step loads the cluster's 9 component
+    planes from global memory at a dynamic row offset — no per-ray gathers;
+  * a cluster's CLUSTER_SIZE triangles are tested in TRI_TILE-wide sub-tiles
+    so the ~15 live Möller-Trumbore planes of a (BLOCK_RAYS, TRI_TILE) tile
+    stay in registers.
 """
 
 from __future__ import annotations
@@ -29,23 +31,26 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from nrdsample_tpu.ops.cluster import CLUSTER_SIZE, ClusterSet, _cluster_entry
-from nrdsample_tpu.ops.intersect import T_MAX
+from nrdsample_tpu.ops.cluster import (
+    CLUSTER_SIZE, N_PLANES, ClusterSet, _cluster_entry,
+)
+from nrdsample_tpu.ops.intersect import EPS, T_MAX
 
-BLOCK_RAYS = 128  # rays per packet; 128 measured best (tight worklists beat
-                  # wider VPU blocks — t-pruning quality wins)
+BLOCK_RAYS = 128  # rays per packet (one program); tight worklists win
 FLAT_WORKLIST_MAX_C = 2048  # above this, stage-1 switches to the
                             # supercluster hierarchy (tests patch this down)
-SUPER_WALK_STREAM = False   # streaming kernel walks supercluster-granular
-                            # worklists (measured-negative on exterior720;
-                            # see _block_worklists_super)
-EPS = 1e-7
+# register tile and launch shape, chosen on an H100 over tile 8-64 x warps
+# 2-8 (PERF.md): 32 triangles x 8 warps was fastest on coherent and sorted
+# wavefronts of shaderballs512 and exterior720
+TRI_TILE = 32     # triangles per register tile inside a cluster
+NUM_WARPS = 8     # warps of one packet program
 
 
 def _mt_block(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z):
-    """Möller-Trumbore on (B, 1) rays x (1, K) triangles -> (B, K) planes."""
+    """Möller-Trumbore on (B, 1) rays x (1, K) triangles -> (B, K) planes;
+    the same arithmetic and epsilons as intersect._mt_intersect."""
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -70,654 +75,77 @@ def _mt_block(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2
     return t, u, v, hit
 
 
-PACKETS_PER_STEP = 8  # TPU block shapes need >= 8 sublanes; each grid step
-                      # therefore runs 8 independent packet loops sequentially
-UNROLL = 8            # independent cluster tests per loop trip (ILP; the loop
-                      # is latency-bound on the slice->intersect->reduce chain)
-TAIL_UNROLL = 2       # trip width of the remainder loop (the <UNROLL leftover
-                      # clusters after the main loop; see two-phase walk below)
-
-
-def _packet_kernel(order_hbm, keys_ref,
-                   ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, tmax_ref,
-                   slab_ref,
-                   t_out, tri_out, u_out, v_out,
-                   order_smem, dma_sem, any_hit: bool, track_uv: bool = True,
-                   interleave: int = 1, prologue: int = 0, hoist: bool = False,
-                   single: int = 0, mxu: bool = False):
-    """One grid step = PACKETS_PER_STEP ray packets (static unroll). The
-    triangle slab table is a full-VMEM resident.
-
-    Mosaic constraints shape the details here:
-      * the per-iteration cluster id must be a *scalar* for dynamic slicing, and
-        dynamic scalar loads from VMEM need 128-alignment — so the worklist
-        order rows are DMA'd into SMEM scratch where scalar reads are free;
-      * the sorted-keys t-pruning is a vector reduction (count of keys below the
-        packet's worst t) instead of a scalar key load;
-      * a cluster's 9 component planes live in ONE 16-row, 8-sublane-aligned
-        slab block, so each iteration issues a single aligned dynamic slice
-        (9 unaligned slices cost ~1.4 us/iter of overhead).
-
-    No explicit worklist length: sorted keys are T_MAX past the end and
-    t_best <= T_MAX, so the prune count never exceeds the real worklist.
-
-    interleave > 1 runs that many packets' traversal loops fused in one
-    while_loop (their latency-bound chains overlap; skewed worklist counts
-    waste math on finished packets). prologue > 0 tests the first `prologue`
-    clusters of EVERY packet in straight-line code first (one big basic block
-    Mosaic can software-pipeline across packets), then runs the per-packet
-    loops for the remainder — worklist counts are p50~1, so most packets
-    never enter their loop."""
-    from nrdsample_tpu.ops.cluster import SLAB_ROWS
-
-    c = keys_ref.shape[1]
-    step = pl.program_id(0)
-    dma = pltpu.make_async_copy(
-        order_hbm.at[pl.ds(step * PACKETS_PER_STEP, PACKETS_PER_STEP), :],
-        order_smem,
-        dma_sem,
-    )
-    dma.start()
-    dma.wait()
-
-    if not track_uv:
-        # occlusion queries never read u/v; write the (required) outputs once
-        u_out[...] = jnp.zeros_like(u_out)
-        v_out[...] = jnp.zeros_like(v_out)
-    uv = (u_out, v_out) if track_uv else None
-
-    if interleave > 1:
-        for p0 in range(0, PACKETS_PER_STEP, interleave):
-            _packet_group(
-                list(range(p0, p0 + interleave)), c, order_smem, keys_ref,
-                ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, tmax_ref,
-                slab_ref, t_out, tri_out, uv, any_hit, SLAB_ROWS,
-            )
-        return
-    if prologue > 0:
-        # phase A: straight-line prologue for all packets (pipelines across
-        # packets — no control flow between them)
-        states = [
-            _packet_prologue(
-                p, c, order_smem, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref,
-                dz_ref, tmax_ref, slab_ref, SLAB_ROWS, prologue, track_uv,
-            )
-            for p in range(PACKETS_PER_STEP)
-        ]
-        # phase B: per-packet remainder loops (usually zero-trip)
-        for p in range(PACKETS_PER_STEP):
-            _one_packet(
-                p, c, order_smem, keys_ref, ox_ref, oy_ref, oz_ref, dx_ref,
-                dy_ref, dz_ref, tmax_ref, slab_ref, t_out, tri_out, uv,
-                any_hit, SLAB_ROWS, init=states[p], hoist=hoist, single=single,
-            )
-        return
-
-    for p in range(PACKETS_PER_STEP):
-        _one_packet(
-            p, c, order_smem, keys_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref,
-            dz_ref, tmax_ref, slab_ref, t_out, tri_out, uv,
-            any_hit, SLAB_ROWS, hoist=hoist, single=single, mxu=mxu,
-        )
-
-
-def _ray_planes(p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref):
-    return (
-        ox_ref[p, :][:, None], oy_ref[p, :][:, None], oz_ref[p, :][:, None],
-        dx_ref[p, :][:, None], dy_ref[p, :][:, None], dz_ref[p, :][:, None],
-    )
-
-
-def _test_cluster(rays, slab_ref, cid, slab_rows):
-    """(t, u, v) planes for one cluster; t = T_MAX on miss (u/v garbage there
-    — every consumer selects by t)."""
-    blk = slab_ref[pl.ds(cid * slab_rows, slab_rows), :]  # (16, K)
-    t, u, v, hit = _mt_block(
-        *rays,
-        blk[0:1, :], blk[1:2, :], blk[2:3, :],
-        blk[3:4, :], blk[4:5, :], blk[5:6, :],
-        blk[6:7, :], blk[7:8, :], blk[8:9, :],
-    )
-    return jnp.where(hit, t, T_MAX), u, v
-
-
-def _ray_features(p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref):
-    """(BLOCK, 16) per-ray feature matrix [o, d, o x d, 1, 0...] — the MXU
-    operand of the Woop-coefficient cluster test (cluster._build_mxu_slab)."""
-    ox, oy, oz = ox_ref[p, :], oy_ref[p, :], oz_ref[p, :]
-    dx, dy, dz = dx_ref[p, :], dy_ref[p, :], dz_ref[p, :]
-    mx = oy * dz - oz * dy
-    my = oz * dx - ox * dz
-    mz = ox * dy - oy * dx
-    one = jnp.ones_like(ox)
-    zero = jnp.zeros_like(ox)
-    cols = [ox, oy, oz, dx, dy, dz, mx, my, mz, one] + [zero] * 6
-    feats = jnp.stack(cols, axis=1)                      # (B, 16)
-    f_hi = feats.astype(jnp.bfloat16).astype(jnp.float32)
-    return f_hi, feats - f_hi                            # bf16x3 operand split
-
-
-def _test_cluster_mxu(feats, slab_ref, cid, slab_rows):
-    """MXU variant of _test_cluster: ONE (B,16)@(16,4K) matmul yields
-    (det, u*det, v*det, t*det) planes; short VPU epilogue recovers the same
-    (t, u, v) as the Möller-Trumbore block (identical epsilon semantics,
-    different float association — parity ~1e-4 relative)."""
-    blk = slab_ref[pl.ds(cid * slab_rows, slab_rows), :]  # (16, 4K)
-    # manual bf16x3: the TPU matmul default feeds raw bf16 into the MXU — 8
-    # mantissa bits flip ~5% of near-tangent hits vs the f32 VPU path
-    # (measured). Splitting both operands into bf16 hi + residual lo and
-    # summing three DEFAULT dots recovers ~f32 products (lo x lo dropped);
-    # Precision.HIGHEST's 6-pass form measured 2x slower than the VPU path
-    # and Mosaic does not lower Precision.HIGH.
-    f_hi, f_lo = feats
-    b_hi = blk.astype(jnp.bfloat16).astype(jnp.float32)
-    b_lo = blk - b_hi
-
-    def dot(a, b):
-        return jax.lax.dot_general(
-            a, b, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    out = dot(f_hi, b_hi) + dot(f_hi, b_lo) + dot(f_lo, b_hi)  # (B, 4K)
-    k = blk.shape[1] // 4
-    det = out[:, 0:k]
-    ud = out[:, k:2 * k]
-    vd = out[:, 2 * k:3 * k]
-    td = out[:, 3 * k:4 * k]
-    inv_det = jnp.where(
-        jnp.abs(det) < EPS, 0.0, 1.0 / jnp.where(det == 0.0, 1.0, det)
-    )
-    u = ud * inv_det
-    v = vd * inv_det
-    t = td * inv_det
-    hit = (
-        (jnp.abs(det) >= EPS)
-        & (u >= -1e-6) & (v >= -1e-6) & (u + v <= 1.0 + 1e-6)
-        & (t > 1e-5)
-    )
-    return jnp.where(hit, t, T_MAX), u, v
-
-
-def _merge_group(t, cid_plane, best, u=None, v=None):
-    """Fold a (B, K) t-plane + block-uniform-ish cid plane into per-ray best.
-
-    best = (t_best, tri_best[, u_best, v_best]). u/v of the winning triangle
-    are tracked IN-KERNEL via the same sel-mask reductions as cid — the XLA
-    gather that used to reconstruct them outside the kernel measured 6.4 ms
-    per 262k-ray launch (~75% of the kernel's own cost), while these
-    reductions ride the latency-bound loop for ~free."""
-    t_best, tri_best = best[0], best[1]
-    t = jnp.where(t < t_best[:, None], t, T_MAX)
+def _merge_tile(t, u, v, base, best):
+    """Fold a (B, K) t-plane (T_MAX on miss) into the per-ray best. Ties keep
+    the lowest triangle index of the tile, like intersect_dense's argmin."""
+    t_best, tri_best, u_best, v_best = best
     k = t.shape[1]
     idxs = jax.lax.broadcasted_iota(jnp.int32, t.shape, 1)
-    tmin = jnp.min(t, axis=-1)
-    is_min = t <= tmin[:, None]
-    kmin = jnp.min(jnp.where(is_min, idxs, k), axis=-1)
-    sel = idxs == kmin[:, None]
-    cid_win = jnp.max(jnp.where(sel, cid_plane, 0), axis=-1)
+    tmin = jnp.min(t, axis=1)
+    kmin = jnp.min(jnp.where(t <= tmin[:, None], idxs, k), axis=1)
     closer = tmin < t_best
-    t_new = jnp.where(closer, tmin, t_best)
-    tri_new = jnp.where(closer, cid_win * CLUSTER_SIZE + kmin, tri_best)
-    if len(best) == 2:
-        return t_new, tri_new
-    u_win = jnp.max(jnp.where(sel, u, -1.0), axis=-1)
-    v_win = jnp.max(jnp.where(sel, v, -1.0), axis=-1)
-    return (t_new, tri_new,
-            jnp.where(closer, u_win, best[2]),
-            jnp.where(closer, v_win, best[3]))
+    t_best = jnp.where(closer, tmin, t_best)
+    tri_best = jnp.where(closer, base + kmin, tri_best)
+    if u is not None:
+        sel = idxs == kmin[:, None]
+        u_best = jnp.where(closer, jnp.sum(jnp.where(sel, u, 0.0), axis=1), u_best)
+        v_best = jnp.where(closer, jnp.sum(jnp.where(sel, v, 0.0), axis=1), v_best)
+    return t_best, tri_best, u_best, v_best
 
 
-def _fold_tests(rays, slab_ref, order_smem, p, i, c, g, slab_rows,
-                track_uv: bool, mxu: bool = False):
-    """Test g consecutive worklist clusters, folding them into ONE
-    (t, cid_plane[, u, v]) plane set by per-slot min. mxu=True: `rays` is the
-    (B, 16) feature matrix and slab_ref the Woop-coefficient slab."""
-    test = _test_cluster_mxu if mxu else _test_cluster
-    cid0 = order_smem[p, jnp.minimum(i, c - 1)]
-    t, u, v = test(rays, slab_ref, cid0, slab_rows)
-    cid_plane = jnp.broadcast_to(cid0, t.shape)
-    for j in range(1, g):
-        cid_j = order_smem[p, jnp.minimum(i + j, c - 1)]
-        t_j, u_j, v_j = test(rays, slab_ref, cid_j, slab_rows)
-        take = t_j < t
-        cid_plane = jnp.where(take, cid_j, cid_plane)
-        t = jnp.where(take, t_j, t)
-        if track_uv:
-            u = jnp.where(take, u_j, u)
-            v = jnp.where(take, v_j, v)
-    return (t, cid_plane, u, v) if track_uv else (t, cid_plane, None, None)
+def _packet_kernel(order_ref, keys_ref, rays_ref, planes_ref,
+                   t_out, tri_out, u_out, v_out, *, any_hit: bool,
+                   track_uv: bool, tile: int):
+    """One program = one packet. rays_ref rows: ox oy oz dx dy dz t_max.
 
-
-def _init_best(t0, track_uv: bool):
-    tri0 = jnp.full(t0.shape, -1, jnp.int32)
-    if track_uv:
-        return (t0, tri0, jnp.zeros_like(t0), jnp.zeros_like(t0))
-    return (t0, tri0)
-
-
-def _write_best(p, best, t_out, tri_out, uv):
-    t_out[p, :] = best[0]
-    tri_out[p, :] = best[1]
-    if uv is not None:
-        uv[0][p, :] = best[2]
-        uv[1][p, :] = best[3]
-
-
-def _packet_prologue(p, c, order_smem, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref,
-                     dz_ref, tmax_ref, slab_ref, slab_rows: int, g: int,
-                     track_uv: bool):
-    """Unconditionally test the first g worklist clusters of packet p
-    (straight-line code; junk entries past the real worklist are valid cluster
-    ids — extra tests only ever find true hits). Returns a loop state resumed
-    at i=g."""
-    rays = _ray_planes(p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref)
-    t0 = tmax_ref[p, :]
-    t, cid_plane, u, v = _fold_tests(
-        rays, slab_ref, order_smem, p, jnp.int32(0), c, g, slab_rows, track_uv
-    )
-    best = _merge_group(t, cid_plane, _init_best(t0, track_uv), u, v)
-    return (jnp.int32(g),) + best
-
-
-def _packet_group(ps, c, order_smem, keys_ref,
-                  ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, tmax_ref,
-                  slab_ref, t_out, tri_out, uv, any_hit: bool, slab_rows: int):
-    """len(ps) packets traversed in ONE fused while loop: each trip tests
-    TAIL_UNROLL clusters of EVERY packet (independent latency chains overlap).
-    No per-packet gating — finished packets test junk worklist entries, which
-    are valid cluster ids and thus only ever produce true hits (wasted, but
-    latency-hidden; pl.when gating was measured slower)."""
-    n = len(ps)
-    g = TAIL_UNROLL
-    track_uv = uv is not None
-    w = 4 if track_uv else 2  # state words per packet
-    rays = [
-        _ray_planes(p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref)
-        for p in ps
-    ]
-    t0s = [tmax_ref[p, :] for p in ps]
-    keys = [keys_ref[p, :] for p in ps]
-
-    init = (jnp.int32(0),)
-    for t0 in t0s:
-        init = init + _init_best(t0, track_uv)
+    No explicit worklist length: sorted keys are +inf (or T_MAX) past the end
+    and t_best <= t_max, so the key test stops the walk there."""
+    c = order_ref.shape[0]
+    ray = [rays_ref[k, :][:, None] for k in range(6)]
+    t0 = rays_ref[6, :]
 
     def cond(state):
-        i = state[0]
-        pc = jnp.int32(0)
-        for k in range(n):
-            t_best = state[1 + w * k]
-            pck = jnp.sum((keys[k] < jnp.max(t_best)).astype(jnp.int32))
-            if any_hit:
-                done = jnp.logical_not(jnp.any(t_best >= tmax_ref[ps[k], :]))
-                pck = jnp.where(done, jnp.int32(0), pck)
-            pc = jnp.maximum(pc, pck)
-        return i < pc
-
-    def body(state):
-        i = state[0]
-        out = (i + g,)
-        for k, p in enumerate(ps):
-            best = state[1 + w * k:1 + w * (k + 1)]
-            t, cid_plane, u, v = _fold_tests(
-                rays[k], slab_ref, order_smem, p, i, c, g, slab_rows, track_uv
-            )
-            out = out + _merge_group(t, cid_plane, best, u, v)
-        return out
-
-    state = jax.lax.while_loop(cond, body, init)
-    for k, p in enumerate(ps):
-        _write_best(p, state[1 + w * k:1 + w * (k + 1)], t_out, tri_out, uv)
-
-
-def _one_packet(p, c, order_smem, keys_ref,
-                ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, tmax_ref,
-                slab_ref, t_out, tri_out, uv, any_hit: bool,
-                slab_rows: int, init=None, hoist: bool = False,
-                single: int = 0, mxu: bool = False):
-    """One packet's self-terminating traversal loop. A fused all-packets loop
-    with pl.when-gated work was tried and measured SLOWER (scalar branches
-    around vector work defeat Mosaic's pipelining); independent per-packet
-    loops it is. init: optional resumed loop state (prologue phase).
-    hoist: move the prune-count reduction off the serial cond chain (see
-    _one_packet_hoisted)."""
-    track_uv = uv is not None
-    rays = (_ray_features if mxu else _ray_planes)(
-        p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref)
-    t0 = tmax_ref[p, :]
-    if init is None:
-        init = (jnp.int32(0),) + _init_best(t0, track_uv)
-    if hoist:
-        return _one_packet_hoisted(
-            p, c, order_smem, keys_ref, ox_ref, oy_ref, oz_ref, dx_ref,
-            dy_ref, dz_ref, tmax_ref, slab_ref, t_out, tri_out, uv, any_hit,
-            slab_rows, init, single=single, mxu=mxu,
-        )
-
-    keys_row = keys_ref[p, :]
-
-    def prune_count(t_best):
-        # block-level t-pruning, vectorized: keys are sorted ascending, so
-        # keys[i] < X  <=>  i < count(keys < X)  (no scalar VMEM loads)
-        return jnp.sum((keys_row < jnp.max(t_best)).astype(jnp.int32))
-
-    def undone(t_best):
-        if any_hit:
-            # for occlusion we only need *a* hit inside t_max
-            return jnp.any(t_best >= tmax_ref[p, :])
-        return True
-
-    def make_body(g: int):
-        # g-wide trip: g INDEPENDENT cluster tests per iteration — the loop is
-        # latency-bound (slice -> intersect -> reduce -> cond is a serial
-        # chain), so independent work per trip is the lever, not fewer ops
-        # (2-wide measured +13% primary / +27% bounce over 1-wide).
-        def body(state):
-            i, best = state[0], state[1:]
-            t, cid_plane, u, v = _fold_tests(
-                rays, slab_ref, order_smem, p, i, c, g, slab_rows, track_uv,
-                mxu=mxu,
-            )
-            return (i + g,) + _merge_group(t, cid_plane, best, u, v)
-
-        return body
-
-    # Two-phase walk: UNROLL-wide main loop while a FULL group remains below
-    # the prune horizon, then a TAIL_UNROLL-wide remainder loop. Worklist
-    # counts are heavily skewed (p50 ~ 1 on coherent primaries), so rounding
-    # every packet up to UNROLL tests was measured to nearly double the
-    # intersection math; the tail loop pays latency only for the 1-7 clusters
-    # that actually remain.
-    def cond_main(state):
         i, t_best = state[0], state[1]
-        return (i + UNROLL <= prune_count(t_best)) & undone(t_best)
-
-    def cond_tail(state):
-        i, t_best = state[0], state[1]
-        return (i < prune_count(t_best)) & undone(t_best)
-
-    state = jax.lax.while_loop(cond_main, make_body(UNROLL), init)
-    state = jax.lax.while_loop(cond_tail, make_body(TAIL_UNROLL), state)
-    _write_best(p, state[1:], t_out, tri_out, uv)
-
-
-def _one_packet_hoisted(p, c, order_smem, keys_ref,
-                        ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                        tmax_ref, slab_ref, t_out, tri_out, uv, any_hit: bool,
-                        slab_rows: int, init, single: int = 0,
-                        mxu: bool = False):
-    """Variant of _one_packet with the prune-count reduction HOISTED off the
-    serial cond chain: the baseline cond evaluates max(t_best) + a c-lane
-    key comparison + sum every trip, serializing two reductions between
-    trips. Here the body computes next trip's bound from its PRE-merge
-    t_best (independent of the slice->intersect chain, so it overlaps), and
-    the cond is a scalar compare. The bound is one trip stale = one trip
-    conservative: sorted keys only ever prune LATER, never earlier, so extra
-    tests are wasted-but-valid work, and i grows monotonically so the loop
-    terminates."""
-    track_uv = uv is not None
-    rays = (_ray_features if mxu else _ray_planes)(
-        p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref)
-    keys_row = keys_ref[p, :]
-
-    def prune_count(t_best):
-        pc = jnp.sum((keys_row < jnp.max(t_best)).astype(jnp.int32))
+        key = keys_ref[jnp.minimum(i, c - 1)]
+        go = (i < c) & (key < jnp.max(t_best))
         if any_hit:
-            done = jnp.logical_not(jnp.any(t_best >= tmax_ref[p, :]))
-            pc = jnp.where(done, jnp.int32(0), pc)
-        return pc
-
-    init_h = init + (prune_count(init[1]),)
-
-    def make_body(g: int):
-        def body(state):
-            i, best = state[0], state[1:-1]
-            pc_next = prune_count(best[0])  # no dep on the test chain below
-            t, cid_plane, u, v = _fold_tests(
-                rays, slab_ref, order_smem, p, i, c, g, slab_rows, track_uv,
-                mxu=mxu,
-            )
-            return (i + g,) + _merge_group(t, cid_plane, best, u, v) + (pc_next,)
-
-        return body
-
-    def cond_main(state):
-        return state[0] + UNROLL <= state[-1]
-
-    def cond_tail(state):
-        return state[0] < state[-1]
-
-    if single:
-        # ONE while_loop at trip width `single` — the two-phase split pays a
-        # second loop's fixed Mosaic machinery (~0.65 us/loop, 24% of the
-        # shaderballs kernel at zero-trip floors, tools/profile_floor.py);
-        # over-testing past the horizon is junk-but-valid work
-        state = jax.lax.while_loop(cond_tail, make_body(single), init_h)
-        _write_best(p, state[1:-1], t_out, tri_out, uv)
-        return
-    state = jax.lax.while_loop(cond_main, make_body(UNROLL), init_h)
-    state = jax.lax.while_loop(cond_tail, make_body(TAIL_UNROLL), state)
-    _write_best(p, state[1:-1], t_out, tri_out, uv)
-
-
-def _packet_kernel_stream(order_hbm, keys_ref,
-                          ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                          tmax_ref, slab_hbm,
-                          t_out, tri_out, u_out, v_out,
-                          order_smem, dma_sem, slab_scr, slab_sem,
-                          any_hit: bool, track_uv: bool = True,
-                          members: int = 1):
-    """HBM-streaming variant: the slab table stays in HBM; each packet's
-    worklist is walked in UNROLL-cluster groups that are DOUBLE-BUFFERED into
-    VMEM scratch with async DMA — the fetch of group i+1 hides behind the
-    intersect math of group i, and the VMEM scene-size ceiling disappears
-    (resident kernel caps at ~300k tris; this streams Bistro-scale tables).
-    Matches the traversal role of RaytracingShared.hlsli:314-421 at
-    README.md:7 scene scale."""
-    from nrdsample_tpu.ops.cluster import SLAB_ROWS
-
-    c = keys_ref.shape[1]
-    step = pl.program_id(0)
-    dma = pltpu.make_async_copy(
-        order_hbm.at[pl.ds(step * PACKETS_PER_STEP, PACKETS_PER_STEP), :],
-        order_smem,
-        dma_sem,
-    )
-    dma.start()
-    dma.wait()
-
-    if not track_uv:
-        u_out[...] = jnp.zeros_like(u_out)
-        v_out[...] = jnp.zeros_like(v_out)
-    uv = (u_out, v_out) if track_uv else None
-    for p in range(PACKETS_PER_STEP):
-        _one_packet_stream(
-            p, c, order_smem, keys_ref, ox_ref, oy_ref, oz_ref, dx_ref,
-            dy_ref, dz_ref, tmax_ref, slab_hbm, slab_scr, slab_sem,
-            t_out, tri_out, uv, any_hit, SLAB_ROWS, members,
-        )
-
-
-def _one_packet_stream(p, c, order_smem, keys_ref,
-                       ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                       tmax_ref, slab_hbm, slab_scr, slab_sem,
-                       t_out, tri_out, uv, any_hit: bool, slab_rows: int,
-                       members: int = 1):
-    """One packet's traversal with double-buffered slab streaming.
-
-    members > 1 is the SUPERCLUSTER-granular walk (round-5): a worklist entry
-    is a supercluster id covering `members` CONTIGUOUS clusters; each entry
-    issues ONE DMA of the whole contiguous slab region and tests its clusters
-    straight-line. 8x fewer worklist entries, DMA issues, and loop trips than
-    the member-expanded form (the sort is 8x narrower too — the flat C-wide
-    sort was 65 of 143 ms per exterior launch).
-
-    DMA invariant: at every `cond` evaluation for group index i, the DMAs for
-    group i have been STARTED and nothing else is in flight; the body starts
-    group i+G into the other slot before waiting on group i, and the in-flight
-    group at loop exit is drained after the while_loop."""
-    G = max(1, UNROLL // members)   # entries per trip (slabs/trip constant)
-    track_uv = uv is not None
-    rays = _ray_planes(p, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref)
-    ox, oy, oz, dx, dy, dz = rays
-
-    t0 = tmax_ref[p, :]
-    keys_row = keys_ref[p, :]
-    ext_rows = members * slab_rows   # slab rows per worklist entry
-
-    def group_dma(i, slot, j):
-        cid = order_smem[p, jnp.minimum(i + j, c - 1)]
-        return pltpu.make_async_copy(
-            slab_hbm.at[pl.ds(cid * ext_rows, ext_rows), :],
-            slab_scr.at[pl.ds((slot * G + j) * ext_rows, ext_rows), :],
-            slab_sem.at[slot, j],
-        )
-
-    def start_group(i, slot):
-        for j in range(G):
-            group_dma(i, slot, j).start()
-
-    def wait_group(i, slot):
-        for j in range(G):
-            group_dma(i, slot, j).wait()
-
-    start_group(jnp.int32(0), jnp.int32(0))
-    init = (jnp.int32(0),) + _init_best(t0, track_uv)
-
-    def prune_count(t_best):
-        return jnp.sum((keys_row < jnp.max(t_best)).astype(jnp.int32))
-
-    def undone(t_best):
-        if any_hit:
-            return jnp.any(t_best >= tmax_ref[p, :])
-        return True
-
-    def test(off):
-        blk = slab_scr[pl.ds(pl.multiple_of(off, slab_rows), slab_rows), :]
-        t, u, v, hit = _mt_block(
-            ox, oy, oz, dx, dy, dz,
-            blk[0:1, :], blk[1:2, :], blk[2:3, :],
-            blk[3:4, :], blk[4:5, :], blk[5:6, :],
-            blk[6:7, :], blk[7:8, :], blk[8:9, :],
-        )
-        return jnp.where(hit, t, T_MAX), u, v
-
-    def test_entry(i, j, base, t, cid_plane, u, v):
-        """Test every member cluster of worklist entry i+j (scratch at base)."""
-        eid = order_smem[p, jnp.minimum(i + j, c - 1)]
-        for k in range(members):
-            cid_k = eid * members + k
-            t_k, u_k, v_k = test(base + k * slab_rows)
-            if t is None:
-                t, cid_plane = t_k, jnp.broadcast_to(cid_k, t_k.shape)
-                u, v = u_k, v_k
-            else:
-                take = t_k < t
-                cid_plane = jnp.where(take, cid_k, cid_plane)
-                t = jnp.where(take, t_k, t)
-                if track_uv:
-                    u = jnp.where(take, u_k, u)
-                    v = jnp.where(take, v_k, v)
-        return t, cid_plane, u, v
-
-    def cond_main(state):
-        i, t_best = state[0], state[1]
-        # main loop consumes FULL groups only; the remainder is handled by the
-        # tail loop below out of the already-in-flight group's scratch
-        return (i + G <= prune_count(t_best)) & undone(t_best)
+            # occlusion needs only *a* hit inside t_max for every ray
+            open_rays = jnp.max(jnp.where((t_best >= t0) & (t0 > 0.0), 1, 0))
+            go = go & (open_rays > 0)
+        return go
 
     def body(state):
         i, best = state[0], state[1:]
-        slot = (i // G) % 2
-        start_group(i + G, 1 - slot)
-        wait_group(i, slot)
-        base0 = slot * G * ext_rows
+        cid = order_ref[i]
+        row = cid * N_PLANES
+        for k0 in range(0, CLUSTER_SIZE, tile):
+            tri = [planes_ref[row + p, pl.ds(k0, tile)][None, :]
+                   for p in range(N_PLANES)]
+            t, u, v, hit = _mt_block(*ray, *tri)
+            t = jnp.where(hit, t, T_MAX)
+            if not track_uv:
+                u = v = None
+            best = _merge_tile(t, u, v, cid * CLUSTER_SIZE + k0, best)
+        return (i + 1,) + best
 
-        t = cid_plane = u = v = None
-        for j in range(G):
-            t, cid_plane, u, v = test_entry(
-                i, j, base0 + j * ext_rows, t, cid_plane, u, v
-            )
-
-        return (i + G,) + _merge_group(t, cid_plane, best, u, v)
-
-    state = jax.lax.while_loop(cond_main, body, init)
-    i_end = state[0]
-    # drain the group left in flight (started for i_end, never consumed by the
-    # main loop) — its G entries cover every possible tail index
-    slot_end = (i_end // G) % 2
-    wait_group(i_end, slot_end)
-
-    def cond_tail(state):
-        i, t_best = state[0], state[1]
-        return (i < prune_count(t_best)) & undone(t_best)
-
-    def body_tail(state):
-        i, best = state[0], state[1:]
-        base = slot_end * G * ext_rows + (i - i_end) * ext_rows
-        t, cid_plane, u, v = test_entry(i, 0, base, None, None, None, None)
-        return (i + 1,) + _merge_group(t, cid_plane, best, u, v)
-
-    state = jax.lax.while_loop(cond_tail, body_tail, state)
-    _write_best(p, state[1:], t_out, tri_out, uv)
+    zeros = jnp.zeros_like(t0)
+    init = (jnp.int32(0), t0, jnp.full(t0.shape, -1, jnp.int32), zeros, zeros)
+    _, t_best, tri_best, u_best, v_best = jax.lax.while_loop(cond, body, init)
+    t_out[...] = t_best
+    tri_out[...] = tri_best
+    u_out[...] = u_best
+    v_out[...] = v_best
 
 
 _CID_BITS = 14  # cluster-id payload bits in the packed sort key (<= 16384 clusters)
 
 
-# below this row width the packed worklist sort runs as a dense rank sort
-# (O(C^2) VPU work, no XLA sort emitter) — jnp.sort on a (2048, 104) int32
-# matrix measured 3.2 ms on v5e (the sort emitter dominates stage 1), the
-# rank sort's compare-matrix + one-hot reduction is plain elementwise work
-_RANK_SORT_MAX_C = 512
-# live-memory cap for the (chunk, c, c) intermediates (fusion into the
-# rank reduction is not guaranteed at frame-sized nb — same failure mode as
-# the stage-1 entry matrix, see _STAGE1_BYTES_BUDGET). Worst case ~4 such
-# buffers may be live at once if XLA fuses nothing (bool compare, int32
-# cast, bool select, masked product), so the estimate below carries a 4x
-# multiplier rather than counting just the compare matrix.
-_RANK_SORT_BYTES_BUDGET = 128 << 20
-
-
-def _rank_sort_rows(packed):
-    """Row-wise ascending sort of (nb, c) int32 rows of UNIQUE non-negative
-    values (the packed worklist keys: float bits | cid — cids make rows
-    unique). rank[b,k] = #values below packed[b,k]; the sorted row is the
-    one-hot placement sum. All dense VPU work, O(c^2) per row, chunked over
-    rows to bound the live compare matrix."""
-    nb, c = packed.shape
-
-    def one(rows):
-        less = rows[:, None, :] < rows[:, :, None]     # (chunk, k, m)
-        rank = jnp.sum(less.astype(jnp.int32), axis=-1)  # a permutation
-        j = jax.lax.broadcasted_iota(jnp.int32, rank.shape + (c,), 2)
-        sel = rank[:, :, None] == j                    # (chunk, k, j)
-        return jnp.sum(jnp.where(sel, rows[:, :, None], 0), axis=1)
-
-    def one_row(row):
-        # per-row variant for lax.map(batch_size=...): lax.map applies its
-        # function ELEMENTWISE (each call sees one (c,) row; batch_size only
-        # sizes the internal vmap), so this must index 1-D, not (chunk, c)
-        less = row[None, :] < row[:, None]             # (k, m)
-        rank = jnp.sum(less.astype(jnp.int32), axis=-1)
-        j = jax.lax.broadcasted_iota(jnp.int32, (c, c), 1)
-        sel = rank[:, None] == j                       # (k, j)
-        return jnp.sum(jnp.where(sel, row[:, None], 0), axis=0)
-
-    if nb * c * c * 4 * 4 <= _RANK_SORT_BYTES_BUDGET:
-        return one(packed)
-    chunk = max(1, _RANK_SORT_BYTES_BUDGET // (c * c * 4 * 4))
-    return jax.lax.map(one_row, packed, batch_size=min(chunk, nb))
-
-
 def _sort_worklists(key, hit):
     """(order, keys_sorted, count) from per-block keys via ONE int32 sort.
 
-    XLA's co-sort (f32 keys + i32 payload argsort + take_along_axis gather) was
-    measured 99.6 ms on a (1024, 8263) matrix; packing the quantized key into
-    the high bits of one int32 and the cluster id into the low 14 bits makes it
-    13.0 ms (single operand, no gather). The reconstructed keys have their low
+    Packing the quantized key into the high bits of one int32 and the cluster
+    id into the low 14 bits turns the f32-key + i32-payload co-sort and its
+    gather into a single-operand sort. The reconstructed keys have their low
     mantissa bits zeroed — a conservative LOWER bound, so the kernel's
     sorted-key t-pruning stays correct (it may prune a hair later, never
     earlier)."""
@@ -734,9 +162,7 @@ def _sort_worklists(key, hit):
     # float bits are order-preserving for non-negative floats
     bits = jax.lax.bitcast_convert_type(key, jnp.int32)
     cid = jax.lax.broadcasted_iota(jnp.int32, key.shape, 1)
-    packed = (bits & ~mask) | cid
-    packed = (_rank_sort_rows(packed) if c <= _RANK_SORT_MAX_C
-              else jnp.sort(packed, axis=1))
+    packed = jnp.sort((bits & ~mask) | cid, axis=1)
     order = packed & mask
     keys_sorted = jax.lax.bitcast_convert_type(packed & ~mask, jnp.float32)
     return order, keys_sorted, jnp.sum(hit, axis=1).astype(jnp.int32)
@@ -745,7 +171,7 @@ def _sort_worklists(key, hit):
 # live-memory budget for the stage-1 exact entry matrix; beyond it the
 # block-min is computed in lax.map chunks (XLA fuses the entry math into the
 # reduction within a chunk, but at frame-sized R x C the single-shot fusion
-# has been observed to materialize the full matrix -> HBM OOM at 1080p+)
+# can materialize the full matrix -> device OOM at 1080p+)
 _STAGE1_BYTES_BUDGET = 256 << 20
 
 
@@ -774,9 +200,7 @@ def _block_min_entry(origin, direction, cs, t_max, block: int):
 
 def _block_worklists(origin, direction, cs: ClusterSet, t_max, block: int):
     """Stage 1 (flat): exact dense (R, C) entry matrix -> per-packet worklist.
-    Best for small C; _block_worklists_super is the big-scene variant.
-    (A pure per-block interval variant was measured SLOWER at both C=104 and
-    C=782: conservative keys cost more kernel iterations than they save.)"""
+    Best for small C; _block_worklists_super is the big-scene variant."""
     block_near = _block_min_entry(origin, direction, cs, t_max, block)  # (nb, C)
     hit = block_near < T_MAX
     key = jnp.where(hit, block_near, T_MAX)
@@ -784,7 +208,7 @@ def _block_worklists(origin, direction, cs: ClusterSet, t_max, block: int):
 
 
 def _block_worklists_super(origin, direction, cs: ClusterSet, t_max,
-                           block: int, expand: bool = True):
+                           block: int):
     """Hierarchical stage 1 for big scenes: exact per-ray entry tests run on
     the SUPERCLUSTER level ((R, C/8) instead of (R, C)); cluster membership is
     refined with the cheap per-block interval test; the sort key per cluster
@@ -792,31 +216,17 @@ def _block_worklists_super(origin, direction, cs: ClusterSet, t_max,
     conservative lower bounds, so kernel t-pruning stays correct."""
     from nrdsample_tpu.ops.cluster import SUPER_SIZE
 
-    r = origin.shape[0]
     c = cs.count
-    nb = r // block
 
     # exact per-ray supercluster entries, block-reduced (chunked: the full
-    # (R, Cs) matrix at frame-sized R would blow HBM, see _block_min_entry)
+    # (R, Cs) matrix at frame-sized R would exhaust memory, see _block_min_entry)
     block_near_s = _block_min_entry(
         origin, direction, (cs.super_min, cs.super_max), t_max, block
     )                                                                 # (nb, Cs)
-
-    if not expand:
-        # supercluster-granular worklists for the streaming kernel's
-        # contiguous-DMA walk (entries are SUPER ids; one DMA + 8
-        # straight-line member tests each). MEASURED SLOWER on exterior720
-        # (185 vs 143 ms/launch): the dropped cluster-level interval cull
-        # costs ~190 extra member tests/packet, more than the 8x-narrower
-        # sort saves. Kept behind SUPER_WALK_STREAM for the record.
-        hit_s = block_near_s < T_MAX
-        key_s = jnp.where(hit_s, block_near_s, T_MAX)
-        return _sort_worklists(key_s, hit_s)
-
     super_key = jnp.repeat(block_near_s, SUPER_SIZE, axis=1)[:, :c]   # (nb, C)
 
     # cluster-level interval refinement (per-block ray bounds)
-    hit_i, lb_i, _ = _block_worklists_interval_parts(
+    hit_i, lb_i = _block_worklists_interval_parts(
         origin, direction, cs, t_max, block
     )
 
@@ -828,7 +238,7 @@ def _block_worklists_super(origin, direction, cs: ClusterSet, t_max,
 def _block_worklists_interval_parts(origin, direction, cs: ClusterSet, t_max,
                                     block: int):
     """Per-block interval-arithmetic cluster test; returns (hit (nb,C) bool,
-    lower-bound keys (nb,C), None)."""
+    lower-bound keys (nb,C))."""
     r = origin.shape[0]
     c = cs.count
     nb = r // block
@@ -871,17 +281,12 @@ def _block_worklists_interval_parts(origin, direction, cs: ClusterSet, t_max,
         tfar_ub = jnp.minimum(tfar_ub, hi_k)
 
     hit = (tnear_lb <= tfar_ub) & (tnear_lb < t_cap[:, None])
-    return hit, jnp.maximum(tnear_lb, 0.0), None
-
-
-def vmem_table_bytes(cs: ClusterSet) -> int:
-    return int(cs.slab.shape[0]) * CLUSTER_SIZE * 4
+    return hit, jnp.maximum(tnear_lb, 0.0)
 
 
 def _morton_sort_keys(origin, direction, cs: ClusterSet):
     """Ray-coherence sort key: direction octant (high bits) + 10-bit-per-axis
-    morton code of the origin within the scene bounds. Re-binning divergent
-    bounce/shadow rays into coherent packets measured 3.3x on TPU."""
+    morton code of the origin within the scene bounds."""
     lo = jnp.min(cs.bounds_min, axis=0)
     hi = jnp.max(cs.bounds_max, axis=0)
     q = jnp.clip((origin - lo) / jnp.maximum(hi - lo, 1e-6), 0.0, 1.0)
@@ -903,187 +308,95 @@ def _morton_sort_keys(origin, direction, cs: ClusterSet):
     return (octant << jnp.uint32(30)) | (morton >> jnp.uint32(2))
 
 
-def closest_hit_packet(cs: ClusterSet, origin, direction, t_max=T_MAX,
-                       block: int = BLOCK_RAYS, interpret: bool = False,
-                       sort: bool = False, stream: bool | None = None,
-                       interleave: int = 1, prologue: int = 0,
-                       hoist: bool = False, need_uv: bool = True,
-                       any_hit: bool = False, single: int = 0,
-                       mxu: bool = False):
-    """Packet-traversal closest hit: origin/direction (R, 3), R % block == 0
-    after padding (handled here). Returns dict(t, u, v, tri); u/v of the
-    winning triangle are tracked inside the kernel (the XLA gather that used
-    to reconstruct them outside measured 6.4 ms per 262k-ray launch).
+def closest_hit_packet(cs: ClusterSet, origin, direction, t_max=T_MAX, *,
+                       interpret: bool = False, sort: bool = False,
+                       need_uv: bool = True, any_hit: bool = False):
+    """Packet-traversal closest hit: origin/direction (R, 3) -> dict(t, u, v,
+    tri); R is padded to a whole packet here. u/v of the winning triangle are
+    tracked inside the kernel.
 
     sort=True re-bins rays by (direction octant, origin morton) before
     packetization and scatters results back — use for divergent bounce/shadow
     wavefronts; primary rays are already screen-coherent.
 
-    stream selects the HBM-streaming double-buffered kernel (None = auto: used
-    when the slab table exceeds the VMEM-resident budget).
-
     need_uv=False (occlusion queries) skips the in-loop u/v tracking; the
-    returned u/v are zeros.
-
-    interleave/prologue/hoist select loop structures of the RESIDENT kernel
-    only — the HBM-streaming kernel (stream=True, or auto-selected when the
-    slab table exceeds PACKET_VMEM_LIMIT) ignores them: its loop is DMA-bound,
-    so the hoisted prune-count and prologue levers don't apply there."""
-    if stream is None:
-        from nrdsample_tpu.ops.traversal import PACKET_VMEM_LIMIT
-
-        stream = vmem_table_bytes(cs) > PACKET_VMEM_LIMIT
+    returned u/v are zeros. any_hit=True ends a packet's walk once every ray
+    has a hit inside its t_max."""
     if sort:
-        key = _morton_sort_keys(
-            jax.lax.stop_gradient(origin), jax.lax.stop_gradient(direction), cs
-        )
+        key = _morton_sort_keys(origin, direction, cs)
         # ONE variadic sort carrying every ray attribute + the original index
-        # as payload, and a second variadic sort keyed on that index to
-        # restore order. The argsort + gather + inverse-argsort + gather
-        # machinery measured ~12 ms at 262k rays; two payload sorts are
-        # ~2.2 ms each (XLA's sort moves payload rows with the keys — no
-        # gather emitter involved).
+        # as payload, and a second one keyed on that index to restore order
+        # (no gathers: the sort moves payload rows with the keys)
         r0 = origin.shape[0]
         tmb = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (r0,))
-        idx = jax.lax.broadcasted_iota(jnp.int32, (r0, 1), 0).squeeze(-1)
-        o = jax.lax.stop_gradient(origin)
-        d = jax.lax.stop_gradient(direction)
+        idx = jax.lax.broadcasted_iota(jnp.int32, (r0,), 0)
         (_, ox, oy, oz, dx, dy, dz, tms, idx_s) = jax.lax.sort(
-            (key, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-             tmb, idx), num_keys=1,
+            (key, origin[:, 0], origin[:, 1], origin[:, 2], direction[:, 0],
+             direction[:, 1], direction[:, 2], tmb, idx), num_keys=1,
         )
         res = closest_hit_packet(
             cs, jnp.stack([ox, oy, oz], axis=1), jnp.stack([dx, dy, dz], axis=1),
-            tms, block, interpret, sort=False, stream=stream,
-            interleave=interleave, prologue=prologue, hoist=hoist,
-            need_uv=need_uv, any_hit=any_hit, single=single, mxu=mxu,
+            tms, interpret=interpret, need_uv=need_uv, any_hit=any_hit,
         )
         (_, t, u, v, tri) = jax.lax.sort(
             (idx_s, res["t"], res["u"], res["v"], res["tri"]), num_keys=1,
         )
         return {"t": t, "u": u, "v": v, "tri": tri}
+
+    block = BLOCK_RAYS
     r = origin.shape[0]
-    pad = (-r) % (block * PACKETS_PER_STEP)
-    if pad:
-        origin = jnp.concatenate(
-            [origin, jnp.zeros((pad, 3), origin.dtype)], axis=0
-        )
-        direction = jnp.concatenate(
-            [direction, jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0]), (pad, 3))], axis=0
-        )
-    rp = r + pad
+    pad = (-r) % block
     t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (r,))
-    tm = jnp.concatenate([t_max, jnp.zeros((pad,), jnp.float32)], axis=0) if pad else t_max
+    if pad:
+        # padding rays have t_max = 0: they enter no cluster and never hit
+        origin = jnp.concatenate([origin, jnp.zeros((pad, 3), origin.dtype)], axis=0)
+        direction = jnp.concatenate(
+            [direction, jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0], direction.dtype),
+                                         (pad, 3))], axis=0)
+        t_max = jnp.concatenate([t_max, jnp.zeros((pad,), jnp.float32)], axis=0)
+    nb = (r + pad) // block
 
-    nb = rp // block
-    # stage-1 mode: flat exact entries whenever affordable — measured faster
-    # than every cheaper variant up to C=782 (XLA fuses the (R, C) entry math
-    # into the block-min reduction, so the matrix is never materialized). The
-    # supercluster hierarchy (exact per-ray keys at C/8 granularity +
-    # per-block interval refinement) is the FEASIBILITY path for Bistro-scale
-    # C in the thousands
-    from nrdsample_tpu.ops.cluster import SUPER_SIZE
-
-    members = 1
+    # stage 1: flat exact entries whenever affordable; the supercluster
+    # hierarchy (exact per-ray keys at C/8 granularity + per-block interval
+    # refinement) bounds the stage-1 work for scenes with thousands of clusters
     if cs.count <= FLAT_WORKLIST_MAX_C:
-        order, keys_sorted, count = _block_worklists(origin, direction, cs, tm, block)
-    elif stream and SUPER_WALK_STREAM:
-        # supercluster-granular walk (one DMA + straight-line member tests
-        # per super): measured-negative default, see _block_worklists_super
-        order, keys_sorted, count = _block_worklists_super(
-            origin, direction, cs, tm, block, expand=False
-        )
-        members = SUPER_SIZE
+        order, keys_sorted, _ = _block_worklists(origin, direction, cs, t_max, block)
     else:
-        order, keys_sorted, count = _block_worklists_super(
-            origin, direction, cs, tm, block
-        )
-    # Mosaic: VMEM slices must be 128-aligned in the lane dim — pad the
-    # worklist width (which may exceed cs.count after the supercluster
-    # expansion); padded keys are T_MAX so the prune count never reaches them
-    cbase = order.shape[1]
-    cpad = (-cbase) % 128
-    if cpad:
-        order = jnp.concatenate(
-            [order, jnp.zeros((nb, cpad), jnp.int32)], axis=1
-        )
-        keys_sorted = jnp.concatenate(
-            [keys_sorted, jnp.full((nb, cpad), T_MAX, jnp.float32)], axis=1
-        )
+        order, keys_sorted, _ = _block_worklists_super(
+            origin, direction, cs, t_max, block)
+    c = order.shape[1]
 
-    o_c = [origin[:, k].reshape(nb, block) for k in range(3)]
-    d_c = [direction[:, k].reshape(nb, block) for k in range(3)]
-    tmb = tm.reshape(nb, block)
+    rays = jnp.stack(
+        [origin[:, 0], origin[:, 1], origin[:, 2],
+         direction[:, 0], direction[:, 1], direction[:, 2], t_max,
+         jnp.zeros_like(t_max)], axis=0,
+    ).reshape(8, nb, block).transpose(1, 0, 2)                      # (nb, 8, B)
 
-    c = cbase + cpad
-    pps = PACKETS_PER_STEP
-    row_spec = pl.BlockSpec((pps, block), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    wl_spec = pl.BlockSpec((pps, c), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    slab_spec = pl.BlockSpec(
-        tuple(cs.slab.shape), lambda i: (0, 0), memory_space=pltpu.VMEM
+    kernel = functools.partial(
+        _packet_kernel, any_hit=any_hit, track_uv=need_uv, tile=TRI_TILE,
     )
-
-    out_shape = [
-        jax.ShapeDtypeStruct((nb, block), jnp.float32),
-        jax.ShapeDtypeStruct((nb, block), jnp.int32),
-        jax.ShapeDtypeStruct((nb, block), jnp.float32),
-        jax.ShapeDtypeStruct((nb, block), jnp.float32),
-    ]
-    if stream:
-        from nrdsample_tpu.ops.cluster import SLAB_ROWS
-
-        kernel = functools.partial(_packet_kernel_stream, any_hit=any_hit,
-                                   track_uv=need_uv, members=members)
-        t, tri, u, v = pl.pallas_call(
-            kernel,
-            grid=(nb // pps,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),   # order: HBM -> SMEM
-                wl_spec,   # keys
-                *([row_spec] * 7),   # ox..dz, tmax
-                pl.BlockSpec(memory_space=pl.ANY),   # slab stays in HBM
-            ],
-            out_specs=[row_spec] * 4,
-            out_shape=out_shape,
-            scratch_shapes=[
-                pltpu.SMEM((pps, c), jnp.int32),
-                pltpu.SemaphoreType.DMA,
-                pltpu.VMEM((2 * UNROLL * SLAB_ROWS, CLUSTER_SIZE), jnp.float32),
-                pltpu.SemaphoreType.DMA((2, UNROLL)),
-            ],
-            interpret=interpret,
-        )(order, keys_sorted, *o_c, *d_c, tmb, cs.slab)
-    else:
-        slab_arr = cs.slab
-        if mxu:
-            assert cs.mxu_slab is not None, "scene built without an MXU slab"
-            slab_arr = cs.mxu_slab
-            slab_spec = pl.BlockSpec(
-                tuple(slab_arr.shape), lambda i: (0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        kernel = functools.partial(
-            _packet_kernel, any_hit=any_hit, track_uv=need_uv,
-            interleave=interleave, prologue=prologue, hoist=hoist,
-            single=single, mxu=mxu,
-        )
-        t, tri, u, v = pl.pallas_call(
-            kernel,
-            grid=(nb // pps,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),   # order: HBM, DMA'd to SMEM
-                wl_spec,   # keys
-                *([row_spec] * 7),   # ox..dz, tmax
-                slab_spec,
-            ],
-            out_specs=[row_spec] * 4,
-            out_shape=out_shape,
-            scratch_shapes=[
-                pltpu.SMEM((pps, c), jnp.int32),
-                pltpu.SemaphoreType.DMA,
-            ],
-            interpret=interpret,
-        )(order, keys_sorted, *o_c, *d_c, tmb, slab_arr)
+    row = pl.BlockSpec((None, block), lambda b: (b, 0))
+    t, tri, u, v = pl.pallas_call(
+        kernel,
+        grid=(nb,),
+        in_specs=[
+            pl.BlockSpec((None, c), lambda b: (b, 0)),          # order
+            pl.BlockSpec((None, c), lambda b: (b, 0)),          # keys
+            pl.BlockSpec((None, 8, block), lambda b: (b, 0, 0)),  # rays
+            pl.BlockSpec(tuple(cs.planes.shape), lambda b: (0, 0)),
+        ],
+        out_specs=[row] * 4,
+        out_shape=[
+            jax.ShapeDtypeStruct((nb, block), jnp.float32),
+            jax.ShapeDtypeStruct((nb, block), jnp.int32),
+            jax.ShapeDtypeStruct((nb, block), jnp.float32),
+            jax.ShapeDtypeStruct((nb, block), jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="packet_traversal",
+    )(order, keys_sorted, rays, cs.planes)
 
     return {
         "t": t.reshape(-1)[:r],
@@ -1093,15 +406,13 @@ def closest_hit_packet(cs: ClusterSet, origin, direction, t_max=T_MAX,
     }
 
 
-def any_hit_packet(cs: ClusterSet, origin, direction, t_max,
-                   block: int = BLOCK_RAYS, interpret: bool = False,
-                   sort: bool = False, stream: bool | None = None,
-                   hoist: bool = False):
-    """Occlusion query via the same kernel (closest-hit then compare; the
-    any_hit early-exit engages in-kernel and u/v tracking is skipped)."""
+def any_hit_packet(cs: ClusterSet, origin, direction, t_max, *,
+                   interpret: bool = False, sort: bool = False):
+    """Occlusion query via the same kernel (the any-hit early exit engages
+    in-kernel and u/v tracking is skipped)."""
     res = closest_hit_packet(
-        cs, origin, direction, t_max, block, interpret, sort, stream,
-        hoist=hoist, need_uv=False, any_hit=True,
+        cs, origin, direction, t_max, interpret=interpret, sort=sort,
+        need_uv=False, any_hit=True,
     )
     t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), origin.shape[:1])
     return (res["tri"] >= 0) & (res["t"] < t_max)

@@ -1,4 +1,4 @@
-"""SHARC — spatial hash radiance cache, TPU-native.
+"""SHARC — spatial hash radiance cache as array programs.
 
 Reference: the SHARC header-only HLSL library (CMake-fetched; SURVEY.md §2.3):
 a 2^22-entry hash grid over (quantized world position, LOD level, normal
@@ -6,7 +6,7 @@ orientation) with accumulation + resolved buffers; exercised via
 `SharcGetCachedRadiance` (TraceOpaque.cs.hlsl:347), `SharcUpdateHit`
 (SharcUpdate.cs.hlsl:109-119) and `SharcResolveEntry` (SharcResolve.cs.hlsl:33).
 
-TPU re-design (SURVEY.md §7.1 row "SHARC"): GPU CAS-loop insertion becomes
+Re-design (SURVEY.md §7.1 row "SHARC"): the CAS-loop insertion becomes
 vectorized gather (probe keys) -> select slot -> scatter (claim) + scatter-add
 (accumulate). Within one jitted frame scatter-adds combine deterministically;
 cross-cell slot conflicts are resolved last-writer-wins at claim time and
@@ -158,16 +158,26 @@ def update(state: SharcState, pos, normal, radiance, cam_pos, frame,
     cur = keys[slot_f]
     empty = cur == 0
     claim = mask_f & empty
-    # last-writer-wins claim (benign: losers just miss this frame)
-    keys = keys.at[slot_f].set(jnp.where(claim, csum_f, cur), mode="drop")
+    # Last-writer-wins claim (benign: losers just miss this frame). The last
+    # writer of a slot is its highest-index sample, as in a sequential pass
+    # over the samples; found with a scatter-max of indices, because the
+    # winner of a duplicate-index scatter-set depends on the order a device
+    # applies it in, and every device (and every shard) must build the same
+    # table.
+    n = slot_f.shape[0]
+    last = jnp.full(keys.shape, -1, jnp.int32).at[slot_f].max(
+        jnp.arange(n, dtype=jnp.int32), mode="drop")
+    has_last = last >= 0
+    last = jnp.maximum(last, 0)
+    keys = jnp.where(has_last & claim[last], csum_f[last], keys)
 
     owned = mask_f & (keys[slot_f] == csum_f)
     add = jnp.concatenate([rad_f, jnp.ones_like(rad_f[..., :1])], axis=-1)
     add = jnp.where(owned[..., None], add, 0.0)
     accum = state.accum.at[slot_f].add(add, mode="drop")
-    last_seen = state.last_seen.at[slot_f].set(
-        jnp.where(owned, jnp.int32(frame), state.last_seen[slot_f]), mode="drop"
-    )
+    # every owner writes the same frame index: any order gives one result
+    last_seen = state.last_seen.at[jnp.where(owned, slot_f, state.capacity)].set(
+        jnp.int32(frame), mode="drop")
     return dataclasses.replace(state, keys=keys, accum=accum, last_seen=last_seen)
 
 

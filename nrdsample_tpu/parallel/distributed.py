@@ -1,16 +1,17 @@
-"""Multi-host orchestration over DCN — jax.distributed + mesh construction.
+"""Multi-process orchestration — jax.distributed + mesh construction.
 
-Reference context (SURVEY.md §5.8): the reference has NO distributed backend —
-this is the TPU build's replacement for "NCCL/MPI would go here": DCN handles
-process bring-up and scene broadcast; ICI collectives (psum/ppermute inside
-the sharded frame/train step, parallel/mesh.py + parallel/halo.py) handle the
-per-step communication.
+Reference context (SURVEY.md §5.8): the reference has NO distributed backend.
+Here jax.distributed handles process bring-up and scene broadcast over the
+network; the per-step collectives (psum/ppermute inside the sharded frame and
+train step, parallel/mesh.py + parallel/halo.py) run over NVLink through
+NCCL between the GPUs of a host, and over the network between hosts.
 
-Usage on a multi-host slice (one process per host, standard TPU env vars):
+Usage with one process per host (nothing is auto-detected: pass the
+coordinator, process count and id, or set COORDINATOR_ADDRESS):
 
     from nrdsample_tpu.parallel import distributed
-    distributed.init()                    # no-op on single process
-    mesh = distributed.global_mesh()      # (hosts, chips_per_host) Mesh
+    distributed.init("host0:1234", 2, rank)   # no-op without a coordinator
+    mesh = distributed.global_mesh()          # (hosts, devices_per_host) Mesh
 """
 
 from __future__ import annotations
@@ -29,15 +30,12 @@ def init(coordinator_address: str | None = None,
     distributed mode is active. Single-process (1 host, CI, CPU tests) is a
     no-op — all entry points work unchanged.
 
-    On Cloud TPU the three arguments auto-detect from the metadata/env; they
-    are exposed for bring-up on plain multi-node clusters.
+    The coordinator comes from the argument or COORDINATOR_ADDRESS; without
+    either this returns False.
     """
-    explicit = coordinator_address is not None
-    auto = any(
-        os.environ.get(k)
-        for k in ("COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS")
-    ) or os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") > 0
-    if not (explicit or auto):
+    coordinator_address = coordinator_address or os.environ.get(
+        "COORDINATOR_ADDRESS")
+    if coordinator_address is None:
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -48,9 +46,10 @@ def init(coordinator_address: str | None = None,
 
 
 def global_mesh(axis_names: tuple = ("host", "chip")) -> Mesh:
-    """(n_hosts, chips_per_host) device mesh: pixel/ray sharding rides the
-    'chip' axis (ICI); the 'host' axis crosses DCN and should only carry
-    all-reduces that are already small (scene-parameter gradients)."""
+    """(n_hosts, devices_per_host) device mesh: pixel/ray sharding rides the
+    'chip' axis (NVLink within a host); the 'host' axis crosses the network
+    and should only carry all-reduces that are already small (scene-parameter
+    gradients)."""
     devs = np.array(jax.devices())
     n_proc = jax.process_count()
     per = len(devs) // max(n_proc, 1)
@@ -58,7 +57,7 @@ def global_mesh(axis_names: tuple = ("host", "chip")) -> Mesh:
 
 
 def broadcast_scene(scene):
-    """Host-0 scene -> every process (the DCN scene-broadcast role of the
+    """Host-0 scene -> every process (the network scene-broadcast role of the
     streamer, SURVEY.md §5.8). With jax.distributed active,
     `jax.experimental.multihost_utils.broadcast_one_to_all` ships the pytree;
     single-process returns the scene unchanged."""

@@ -7,7 +7,7 @@ Two realizations:
      collectives around stencil ops (works when stencils are convs/shifts with
      sharding constraints) — the default inside jit;
   2. explicit (this module): inside shard_map, `exchange_rows` ppermutes the
-     boundary rows over ICI and returns a locally-padded block, so stencil code
+     boundary rows between devices and returns a locally-padded block, so stencil code
      written against local arrays is exact at shard edges.
 """
 

@@ -1,10 +1,11 @@
 """Device mesh construction + pixel sharding for the render pipeline.
 
-Design (SURVEY.md §2.4 TPU additions): the image-space analogue of data
-parallelism — every per-pixel pass shards its flat pixel dimension over the mesh
-axis "px"; the scene is replicated; scene-parameter gradients are `psum`'d over
-ICI inside shard_map. Multi-host: the same mesh spans hosts via
-jax.distributed.initialize (DCN handles launch/broadcast).
+Design (SURVEY.md §2.4): the image-space analogue of data parallelism — every
+per-pixel pass shards its flat pixel dimension over the mesh axis "px"; the
+scene is replicated; scene-parameter gradients are all-reduced across
+devices. The 1-D mesh suits GPUs joined all to all by NVLink (XLA issues the
+collectives through NCCL). Multi-host: the same mesh spans hosts via
+jax.distributed.initialize.
 """
 
 from __future__ import annotations
@@ -55,11 +56,11 @@ def sharded_render_fn(ctx, cfg, mesh: Mesh):
     see exact halos — so the sharded frame equals the single-chip frame.
 
       phase 1  trace_frame inside shard_map: each device traces its pixel rows
-               (scene/camera/SHARC/L1 replicated; the Pallas packet kernel runs
-               per device on its local rays);
+               (scene/camera/SHARC/L1 replicated; the packet traversal
+               kernel runs per device on its local rays);
       phase 2  image_frame OUTSIDE shard_map on the global row-sharded planes:
                GSPMD partitions the denoiser stencils and inserts the exact
-               halo collectives (reproject gathers included).
+               halo collectives (history gathers included).
 
     Returns fn(scene, cam, settings, history, pixel_idx) -> (outputs, history')
     — NOT jitted; wrap in jax.jit at the call site. pixel_idx must be the full

@@ -1,9 +1,9 @@
-"""Dynamic resolution scaling (DRS) — the gRectSize mechanism, TPU-native.
+"""Dynamic resolution scaling (DRS) — the gRectSize mechanism under static shapes.
 
 The reference adjusts the render rect every frame from measured GPU timings
 and crops all passes by `gRectSize` (NRDSample.cpp:2104-2119). Under XLA every
 jitted program has static shapes, so a continuously varying rect would
-recompile each frame; the TPU-native equivalent is a small static BUCKET
+recompile each frame; the equivalent here is a small static BUCKET
 ladder: the controller picks a scale bucket from an EMA of frame times, each
 bucket is a separate jit specialization at (round8(h*s), round8(w*s)) — XLA
 caches one executable per bucket — and the display chain upscales the bucket
@@ -25,7 +25,7 @@ BUCKETS = (1.0, 0.875, 0.75, 0.625, 0.5)
 
 
 def render_size(width: int, height: int, scale: float) -> tuple[int, int]:
-    """Bucket render size: multiples of 8 (TPU sublane alignment), >= 16."""
+    """Bucket render size: multiples of 8, >= 16."""
     w = max(int(round(width * scale / 8)) * 8, 16)
     h = max(int(round(height * scale / 8)) * 8, 16)
     return w, h

@@ -129,6 +129,7 @@ def _shadow_translucency_march(tctx, scene: Scene, cfg: RenderConfig,
     return trans, first_t
 
 
+@jax.named_scope("trace")
 def trace_frame(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 cfg: RenderConfig, settings: Settings, history: History,
                 pixel_idx=None, dynamics=None,
@@ -755,6 +756,7 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
     return outputs, History(**new_h)
 
 
+@jax.named_scope("image")
 def image_frame(cfg: RenderConfig, settings: Settings, cam: Camera,
                 history: History, gb: dict, aux: dict, reset_history=False,
                 gathered: dict | None = None):
@@ -845,24 +847,10 @@ def make_staged_frame(ctx: traversal.TraceContext, cfg: RenderConfig):
     """The staged frame: trace / gather-plan / gather / image as SEPARATE
     jit programs, same signature as make_jitted_frame's frame_fn.
 
-    Why staged: XLA:TPU's HBM-speed gather emitter only engages in (nearly)
-    gathers-only programs (denoise/gatherpass.py). Hoisting every history
-    reprojection into one dedicated program takes the RELAX stack's temporal
-    accumulation from ~16 ms to ~0.05 ms at 512² on a v5e chip; dispatch
-    overhead is ~0.05 ms/stage. Callers must NOT wrap frame_fn in an outer
-    jax.jit — that would re-merge the programs and re-poison the gathers.
-
-    WARNING — NOT the production default (r2 finding, tools/
-    profile_staged_dn3-7.py): on the current libtpu runtime, once ANY other
-    nontrivial program compiles or executes in the process (even a
-    channel-sum), the footprint-gather executable is permanently degraded
-    ~5000x (0.06 ms -> 543 ms at 512²x10ch) — a device-global latch, not a
-    layout or caching effect; fresh-jitted copies of the gather are equally
-    slow, while monolithic programs (make_jitted_frame) are unaffected. A
-    full frame inevitably runs the trace program in the same process, so the
-    staged frame measures 541 ms/denoise-cycle end-to-end vs 17 ms
-    monolithic. Use make_jitted_frame in production until the runtime fast
-    path survives multi-program processes.
+    Every history reprojection is hoisted into one dedicated gather program
+    (denoise/gatherpass.py). Callers must NOT wrap frame_fn in an outer
+    jax.jit — that would re-merge the programs. Not the production path
+    (make_jitted_frame is); kept with its parity tests.
 
     Falls back to the monolithic jit when the config has no gather requests
     (REFERENCE denoiser without TAA).

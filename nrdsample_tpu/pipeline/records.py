@@ -1,4 +1,4 @@
-"""Settings+camera test records — the Tests/*.bin replay system, TPU-native.
+"""Settings+camera test records — the Tests/*.bin replay system.
 
 Reference (SURVEY.md §4.1): a "test" is a 648-byte raw memcpy of
 `struct Settings` + camera state (NRDSample.cpp:1788), stored per scene in

@@ -5,7 +5,7 @@ history reset, render).
 
 `render_record` replays one record end-to-end at a given resolution; the
 golden gate (tools/make_goldens.py + tests/test_golden.py) stores per-tile
-statistics of the result and asserts them on every run — the TPU-native
+statistics of the result and asserts them on every run — the
 analogue of the reference's human-inspected regression states, made
 machine-checkable."""
 
@@ -62,7 +62,7 @@ def cfg_from_render(render: dict, res: int = 32) -> RenderConfig:
     for k, v in render.items():
         kw[k] = enums[k](v) if k in enums else v
     if kw.get("use_sharc"):
-        kw["sharc_capacity"] = 1 << 14  # full 4M table is a TPU-scale default
+        kw["sharc_capacity"] = 1 << 14  # the full 4M-entry table is the frame-scale default
     return RenderConfig(**kw)
 
 

@@ -3,7 +3,7 @@
 This is the BASELINE.json north-star requirement the reference never had: pixel
 gradients flow back to material albedo/roughness/metalness, emissive radiance
 and sun parameters; on a mesh, rays are sharded and scene-parameter gradients
-are all-reduced (`psum`) over ICI inside shard_map (SURVEY.md §2.4 (b)).
+are all-reduced (`psum`) across devices (SURVEY.md §2.4 (b)).
 
 Discrete decisions (hit selection, lobe choice) are detached; gradients flow
 through the continuous shading factors (SURVEY.md §7.1 "Differentiability").
@@ -102,16 +102,15 @@ def make_train_step(ctx, cfg, lr: float = 0.05):
     return step
 
 
-def make_sharded_train_step(ctx, cfg, mesh, lr: float = 0.05):
-    """Multi-chip training step over the TWO-PHASE sharded frame
+def make_sharded_loss_fn(ctx, cfg, mesh):
+    """make_loss_fn over the TWO-PHASE sharded frame
     (parallel.mesh.sharded_render_fn): rays shard over `px` inside shard_map,
     the denoiser stack runs on global row-sharded images, and the loss reduces
-    over the sharded pixel dim — GSPMD inserts the gradient all-reduce over ICI
-    (the psum) in the backward sweep and overlaps it with compute.
+    over the sharded pixel dim — GSPMD inserts the gradient all-reduce (the
+    psum, over NVLink via NCCL on GPUs) in the backward sweep.
 
-    Unlike round 1's in-shard_map frame, the differentiated pipeline here is
-    the SAME pipeline the single chip runs (sharded == unsharded parity).
-    """
+    The differentiated pipeline is the SAME pipeline the single device runs
+    (sharded == unsharded parity). pixel_idx is a required argument."""
     from nrdsample_tpu.parallel.mesh import sharded_render_fn
 
     render_fn = sharded_render_fn(ctx, cfg, mesh)
@@ -123,6 +122,13 @@ def make_sharded_train_step(ctx, cfg, mesh, lr: float = 0.05):
         out, _ = render_fn(scene, cam, settings, history, pixel_idx)
         err = out["color"] - target
         return jnp.sum(err * err)
+
+    return loss_fn
+
+
+def make_sharded_train_step(ctx, cfg, mesh, lr: float = 0.05):
+    """Multi-device training step: SGD on make_sharded_loss_fn."""
+    loss_fn = make_sharded_loss_fn(ctx, cfg, mesh)
 
     @jax.jit
     def step(materials, scene, cam, settings, history, target, pixel_idx):

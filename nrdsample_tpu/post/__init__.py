@@ -5,13 +5,13 @@ frame runs at *render* resolution and is lifted to *output* resolution by
 DLSS-SR/RR (NGX) or left native, then NIS sharpening, then the Final pass
 (split-screen/debug/sRGB) writes the swapchain image.
 
-TPU-native design: the NN upscalers are external SDK black boxes the reference
-links against (SURVEY.md §2.3 "Upscalers" row — explicitly out of scope as NN);
-this package provides the same *slots* with classical kernels that map to the
-MXU/VPU:
+Design: the NN upscalers are external SDK black boxes the reference links
+against (SURVEY.md §2.3 "Upscalers" row — explicitly out of scope as NN);
+this package provides the same *slots* with classical kernels expressed as
+dense array programs:
 
   * ``upscale.lanczos_resize`` — the SR slot: separable Lanczos-2 resampling
-    expressed as two dense matmuls (MXU work, not gathers);
+    expressed as two dense matmuls (not gathers);
   * ``nis.sharpen``            — the NIS slot: contrast-adaptive sharpening;
   * ``guides.rr_guides``       — DlssBefore.cs.hlsl parity: the guide buffers a
     neural denoiser consumes (hw depth, diff/spec albedo, normal+roughness,

@@ -3,13 +3,13 @@
 The reference dispatches DLSS-SR with guide buffers prepared by
 DlssBefore.cs.hlsl:15-62 and consumed at NRDSample.cpp:791-867 / 4284-4317.
 Here the slot is a small residual CNN: the base estimate is the Lanczos-2
-resize (post/upscale.py, MXU matmuls), and the network — conditioned on the
+resize (post/upscale.py, two matmuls), and the network — conditioned on the
 G-buffer guides (normal, roughness, hw-depth) — predicts a residual
 correction. Weights ship with the repo (tools/train_neural_sr.py trains them
 on repo-rendered low/high pairs; tests/test_neural_sr.py asserts PSNR beats
 plain Lanczos on a held-out scene).
 
-TPU notes: 3x3 convs at NHWC lower to XLA convolutions that run on the MXU;
+Notes: 3x3 convs at NHWC lower to XLA convolutions;
 the whole network is ~11k parameters, so the weights travel as tiny HLO
 constants inside the jitted frame.
 """

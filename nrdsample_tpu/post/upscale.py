@@ -4,7 +4,7 @@ Stands in for the DLSS-SR dispatch (NRDSample.cpp:4284-4317
 ``CmdDispatchUpscale``): render-resolution color in, output-resolution color
 out. The resampling operator along each axis is a precomputed dense
 (out, in) matrix, so the whole resize is ``Wh @ img @ Ww^T`` — two matmuls
-that run on the MXU at speed of light instead of per-pixel gathers.
+instead of per-pixel gathers.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -55,9 +56,10 @@ def lanczos_resize(img: jnp.ndarray, out_h: int, out_w: int, a: int = 2) -> jnp.
     if squeeze:
         img = img[..., None]
     c = img.shape[2]
-    x = wh @ img.reshape(h, w * c)                         # (out_h, W*C)
+    hi = jax.lax.Precision.HIGHEST
+    x = jnp.matmul(wh, img.reshape(h, w * c), precision=hi)  # (out_h, W*C)
     x = x.reshape(out_h, w, c).transpose(0, 2, 1)          # (out_h, C, W)
-    x = (x.reshape(out_h * c, w) @ ww.T).reshape(out_h, c, out_w)
+    x = jnp.matmul(x.reshape(out_h * c, w), ww.T, precision=hi).reshape(out_h, c, out_w)
     x = x.transpose(0, 2, 1)                               # (out_h, out_w, C)
     return x[..., 0] if squeeze else x
 

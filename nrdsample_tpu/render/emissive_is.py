@@ -9,15 +9,15 @@ sumIntensity / (chosenIntensity * K), clamped to 8 (firefly suppression).
 Occlusion is NOT tested here — the chosen ray is traced normally afterwards, so
 blockers resolve naturally.
 
-TPU shape: all K candidate directions are generated up front and probed in ONE
-batched launch, then the reservoir folds the precomputed intensities in a
-cheap lax.scan. Two probe paths:
+Wavefront shape: all K candidate directions are generated up front and probed
+in ONE batched launch, then the reservoir folds the precomputed intensities in
+a cheap lax.scan. Two probe paths:
   * dense (E <= DENSE_EMISSIVE_MAX): (K*R, E) Möller-Trumbore, fused by XLA —
     exact and fastest for small emitter sets;
-  * packet (big sets, TPU): closest-hit against a dedicated emissive
-    ClusterSet (the merged-emissive BLAS analogue) built host-side in
-    build_context — Bistro-night class scenes (1000s of emissive tris) keep
-    ALL emitters instead of an area-truncated 256.
+  * packet (big sets, GPU): closest-hit of the packet kernel against a
+    dedicated emissive ClusterSet (the merged-emissive BLAS analogue) built
+    host-side in build_context — Bistro-night class scenes (1000s of
+    emissive tris) keep ALL emitters instead of an area-truncated 256.
 Light intensity is a *sampling weight* -> detached from autodiff; radiance
 gradients flow through the normal shading path.
 """
@@ -34,14 +34,15 @@ from nrdsample_tpu.ops import intersect
 from nrdsample_tpu.scene.types import Scene
 
 # biggest emitter set the dense (K*R, E) probe handles; beyond this the
-# packet path (TPU) or a chunked dense fallback (CPU) takes over
+# packet path (GPU) or the chunked dense probe (CPU) takes over
 DENSE_EMISSIVE_MAX = 512
 
 
 def build_emissive_clusters(scene: Scene):
     """HOST-side (numpy, once per scene): ClusterSet over the emissive subset
     + per padded/reordered triangle base luminance. Returns None for small
-    sets (the dense probe path needs nothing extra).
+    sets (the dense probe path needs nothing extra). Built on every platform;
+    light_probe_batch decides at trace time whether the kernel uses it.
 
     The analogue of the reference's merged-emissive BLAS build
     (NRDSample.cpp:2516-2523): a separate acceleration structure holding only
@@ -49,11 +50,8 @@ def build_emissive_clusters(scene: Scene):
     import numpy as np
 
     from nrdsample_tpu.ops.cluster import build_clusters
-    from nrdsample_tpu.ops.traversal import _tpu_platform
     from nrdsample_tpu.scene.types import TriangleSoA
 
-    if not _tpu_platform():
-        return None  # the packet probe is a Mosaic kernel (TPU-only)
     ids = np.asarray(scene.emissive_tris)
     ids = ids[ids >= 0]
     if len(ids) <= DENSE_EMISSIVE_MAX:
@@ -107,17 +105,8 @@ def light_probe(em: dict, origin: jnp.ndarray, direction: jnp.ndarray) -> jnp.nd
     Frame-scale batched launches (K x R rays at 1080p+ = tens of millions)
     are chunked OUTSIDE the body: both the (N, E) intersection planes and the
     tiny-table intensity gather (XLA lowers it as a lane-padded one-hot dot —
-    a (33M, 8) one-hot measured 15.8 GB padded) must stay chunk-sized.
-
-    On TPU with a small emissive table the Pallas probe kernel streams the
-    whole launch unchunked (ops/emissive_probe.py: exact-E unroll, in-register
-    intensity select — the 718 ms kitchen1080 sink drops to HBM-stream cost)."""
-    from nrdsample_tpu.ops import emissive_probe
-    from nrdsample_tpu.ops.traversal import _tpu_platform
-
+    a tiny-table intensity gather) must stay chunk-sized."""
     r = origin.shape[0]
-    if _tpu_platform() and emissive_probe.usable(em):
-        return emissive_probe.light_probe_pallas(em, origin, direction)
     if r > _PROBE_CHUNK:
         rc = _PROBE_CHUNK
         rpad = (-r) % rc
@@ -138,21 +127,23 @@ def light_probe(em: dict, origin: jnp.ndarray, direction: jnp.ndarray) -> jnp.nd
     return jnp.where(hit, em["intensity"][jnp.maximum(res["tri"], 0)], 0.0)
 
 
+@jax.named_scope("emissive_probe")
 def light_probe_batch(em: dict, origin: jnp.ndarray, dir_planes,
                       active: jnp.ndarray) -> jnp.ndarray:
     """All K candidates in ONE launch: origin (R, 3), dir_planes = 3 x (K, R)
     direction components, active (K, R) -> intensities (K, R). Packet path
-    when the emissive set ships a ClusterSet (big scenes, TPU), dense
+    when the emissive set ships a ClusterSet (big scenes, GPU), dense
     Möller-Trumbore otherwise.
 
-    Directions travel as component planes, not (K, R, 3): a trailing length-3
-    lane dim invites 42x-padded XLA layouts/remat copies at frame scale (a
-    (K, R, 8) remat copy measured a 14.8 GB padding overhead at 1080p)."""
+    Directions travel as component planes, not (K, R, 3), so no (K, R, 3)
+    temporary is materialized at frame scale."""
     dx, dy, dz = dir_planes
     k, r = dx.shape
     d_flat = jnp.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)], axis=1)
     o_flat = jnp.broadcast_to(origin[None], (k, r, 3)).reshape(k * r, 3)
-    if "clusters" in em:
+    from nrdsample_tpu.platform import use_gpu_kernels
+
+    if "clusters" in em and use_gpu_kernels():
         from nrdsample_tpu.ops.packet import closest_hit_packet
 
         # inactive candidates still trace (static shape); masked after
@@ -186,8 +177,7 @@ def reservoir_sample_direction(props: dict, em: dict, is_diffuse: jnp.ndarray,
         k_eff = jnp.where(is_diffuse, k_eff, jnp.maximum(k_spec, 1.0))
 
     # ---- phase 1: ALL candidate directions, vectorized over k. Everything
-    # (K, R)-shaped travels as COMPONENT PLANES — a (K, R, 3) array invites
-    # lane-padded XLA layouts at frame scale (see light_probe_batch) ----
+    # (K, R)-shaped travels as COMPONENT PLANES (see light_probe_batch) ----
     ks = jnp.arange(n_candidates, dtype=jnp.int32)
 
     def gen(_, k):
@@ -200,9 +190,7 @@ def reservoir_sample_direction(props: dict, em: dict, is_diffuse: jnp.ndarray,
         return None, (c[..., 0], c[..., 1], c[..., 2],
                       w[..., 0], w[..., 1], w[..., 2])
 
-    # scan (not vmap): per-k intermediates stay (R,)-sized — vmapped
-    # generation left (K, R, 4..8) temporaries that XLA remat materialized
-    # with a lane-padded layout (14.8 GB overhead at 1080p)
+    # scan (not vmap): per-k intermediates stay (R,)-sized
     _, (cx, cy, cz, wx, wy, wz) = jax.lax.scan(gen, None, ks)   # 6 x (K, R)
     active = (ks[:, None] < k_eff[None, :]).astype(x.dtype)     # (K, R)
 

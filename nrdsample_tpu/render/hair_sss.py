@@ -6,7 +6,7 @@ the path loop for FLAG_HAIR geometry (RaytracingShared.hlsli:35-74, eval/sample
 at :593,775,861) and Burley diffusion-profile SSS applied to the sun lighting
 of FLAG_SKIN geometry (:635-660).
 
-TPU-native implementation (behavioral, not a port):
+Implementation (behavioral, not a port):
   * hair: the classic 3-lobe far-field model (R / TT / TRT) with longitudinal
     Gaussians M_p(theta_h) at cuticle-shifted angles and cosine-power azimuthal
     lobes — the standard real-time approximation of Marschner;

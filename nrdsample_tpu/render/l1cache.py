@@ -10,7 +10,7 @@ attenuated by how view-dependent the hit material is (spec magic curve).
 State: ONE packed (H, W, 7) plane [viewZ*sign(N.sun), diff(3), spec(3)] — the
 prev frame's ComposedDiff/ComposedSpec and the Composition.cs.hlsl:44-46
 signed-viewZ trick. Packing makes the reprojection a single bilinear gather
-instead of three (the wide-gather trick, ~3x on TPU); the sample positions are
+instead of three (the wide-gather trick); the sample positions are
 data-dependent (bounce-hit reprojections inside the trace program), so this
 path keeps the robust tap gather form rather than the staged block gather.
 """

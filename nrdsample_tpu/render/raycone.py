@@ -5,7 +5,8 @@ from the pixel angle (``gUnproject``), width grown by distance at each hit,
 spread widened by surface curvature on reflection (:121-152); the hit's mip
 level comes from the cone footprint vs. the triangle's UV-to-world density
 (:154-189, consumed in CastRay :389-397). This is the Ray Tracing Gems ch.20
-scheme, which ports to TPU unchanged (SURVEY.md §7.1: "ray cones port as-is").
+scheme, which ports to batched arrays unchanged (SURVEY.md §7.1: "ray cones
+port as-is").
 
 State is two floats per ray (width, spread) threaded through the path loop.
 """

@@ -240,6 +240,7 @@ def _rev_flat(a):
     return jnp.flip(a, axis=0).reshape((depth * n_px,) + a.shape[2:])
 
 
+@jax.named_scope("sharc_update")
 def sharc_update_pass(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                       cfg: RenderConfig, settings: Settings, frame,
                       state: sharc.SharcState,

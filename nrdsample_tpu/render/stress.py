@@ -90,7 +90,7 @@ def sanitize_gbuffer(gb: dict, cfg: RenderConfig, settings: Settings,
                      pixel_idx: jnp.ndarray) -> dict:
     """USE_SANITIZATION: zero out NAN/INF/negative radiance and clamp aux
     channels so downstream passes never consume garbage. Out-of-rect pixels
-    (DRS) are also neutralized — the TPU-native equivalent of "the denoiser
+    (DRS) are also neutralized — the equivalent of "the denoiser
     only dispatches over gRectSize"."""
     out = dict(gb)
     inside = rect_mask(cfg, settings, pixel_idx)

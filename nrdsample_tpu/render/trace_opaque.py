@@ -6,7 +6,7 @@ sampling, throughput-threshold termination (no Russian roulette — the referenc
 itself calls RR bad practice, 238-268), radiance cascade at every hit, and
 NRD-oriented hit-distance accumulation.
 
-TPU re-design: the per-pixel megakernel loop becomes a *batched wavefront*: all
+Re-design: the per-pixel megakernel loop becomes a *batched wavefront*: all
 N = H*W rays advance in lockstep through a statically-unrolled bounce loop with
 an `alive` mask (static shapes for XLA; divergence is masked lanes, SURVEY.md
 §7.3.5). Paths (rpp) are a python loop accumulating into the same buffers.
@@ -24,6 +24,8 @@ from nrdsample_tpu.ops import traversal
 from nrdsample_tpu.render import gbuffer, lighting
 from nrdsample_tpu.scene import camera as cam_mod
 from nrdsample_tpu.scene.types import Camera, Scene
+
+_HI = jax.lax.Precision.HIGHEST  # full f32 products (no TF32 on GPUs)
 
 
 def _shadow_rnd(cfg: RenderConfig, pixel_idx, frame, dim: int):
@@ -562,7 +564,7 @@ def psr_walk(ctx, scene, cfg, settings, frame, pixel_idx, props, view_z, cam,
         )
         mirror_mat = jnp.where(
             delta[:, None, None],
-            jnp.einsum("nij,njk->nik", house, mirror_mat),
+            jnp.einsum("nij,njk->nik", house, mirror_mat, precision=_HI),
             mirror_mat,
         )
         # mirror reflection with Fresnel throughput
@@ -673,7 +675,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         x_for_gbuf = x0 - v0 * virt_dist[..., None]
         # unfold the virtual surface normal into camera space via the inverse
         # (= transpose) mirror matrix (TraceOpaque.cs.hlsl:636-638)
-        gb_normal = jnp.einsum("nji,nj->ni", mirror_mat, props["n"])
+        gb_normal = jnp.einsum("nji,nj->ni", mirror_mat, props["n"], precision=_HI)
 
     view_z = jnp.where(
         props["miss"], cfgmod.INF, cam_mod.world_to_view_z(cam, x_for_gbuf)

@@ -249,6 +249,7 @@ def trace_transparent_color(ctxs: traversal.SceneContexts, scene: Scene,
     return glass_color, glass
 
 
+@jax.named_scope("trace_transparent")
 def trace_transparent(ctxs: traversal.SceneContexts, scene: Scene, cam: Camera,
                       cfg: RenderConfig, settings: Settings, frame,
                       composed: jnp.ndarray, gb: dict, pixel_idx,

@@ -1,9 +1,9 @@
 """CPU BVH builder: binned-SAH binary build, collapsed to an 8-wide (BVH8) flat
-array layout for breadth-vectorized TPU traversal.
+array layout for breadth-vectorized traversal.
 
 Replaces the reference's driver-side BLAS/TLAS build + compaction
-(NRDSample.cpp:2464-2864). The TPU-first design (SURVEY.md §7.3.1): wide nodes so
-the 8 child-slab tests vectorize across the VPU lanes *and* across the ray batch;
+(NRDSample.cpp:2464-2864). The design (SURVEY.md §7.3.1): wide nodes so the 8
+child-slab tests vectorize across children *and* across the ray batch;
 leaves hold contiguous triangle ranges (triangles are reordered at build).
 
 A C++ builder (native/bvh_builder.cpp) accelerates the same algorithm for

@@ -7,10 +7,13 @@ aperture sampling) plus the matrix plumbing UpdateConstantBuffer derives
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from nrdsample_tpu.mathlib import geometry as geo, rng, sampling
 from nrdsample_tpu.scene.types import Camera
+
+_HI = jax.lax.Precision.HIGHEST  # full f32 products (no TF32 on GPUs)
 
 
 def pixel_centers(width: int, height: int) -> jnp.ndarray:
@@ -67,7 +70,7 @@ def camera_rays(cam: Camera, width: int, height: int, pixel_idx: jnp.ndarray,
 
     r = cam.view_to_world[:3, :3]
     origin_w = geo.affine_transform(cam.view_to_world, xv)
-    dir_w = jnp.einsum("ij,...j->...i", r, d_view)
+    dir_w = jnp.einsum("ij,...j->...i", r, d_view, precision=_HI)
     return origin_w, geo.normalize(dir_w), uv
 
 

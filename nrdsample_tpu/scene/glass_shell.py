@@ -6,7 +6,7 @@ duplicates it scaled slightly inward, so refraction sees two interfaces
 glTF glass is infinitely thin otherwise. Triggered for BistroInterior at load
 (1052-1053).
 
-TPU-native: the scene is a flat triangle soup, so "instance" is approximated
+Layout: the scene is a flat triangle soup, so "instance" is approximated
 by the connected transparent group sharing a material id; each group's
 triangles are duplicated, scaled toward the group centroid, and flipped
 (inward-facing normals), then appended to the soup (host-side numpy, before

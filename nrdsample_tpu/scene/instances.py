@@ -6,7 +6,7 @@ animated transforms, `CmdBuildTopLevelAccelerationStructures` refits the TLAS
 (NRDSample.cpp:3907-3944), and motion vectors come from each instance's
 ``worldToWorldPrev`` (static vs dynamic matrix overload, 3395-3630).
 
-TPU-native design: instance-local triangle geometry is flattened ONCE at build
+Design: instance-local triangle geometry is flattened ONCE at build
 (fixed cluster assignment from the rest pose); per frame a jitted transform
 pass re-computes world-space triangle SoA + cluster AABBs as dense batched
 matmuls — the "TLAS rebuild" becomes ~2 fused einsums + a reshape-min/max,
@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from nrdsample_tpu.scene.types import Scene, TriangleSoA
+
+_HI = jax.lax.Precision.HIGHEST  # full f32 products (no TF32 on GPUs)
 
 
 @jax.tree_util.register_dataclass
@@ -84,15 +86,15 @@ def transform_scene(inst: InstancedScene, transforms: jnp.ndarray) -> Scene:
     t = m[:, :, 3]                             # (T, 3)
 
     def xf_point(p):
-        return jnp.einsum("tij,tj->ti", r, p) + t
+        return jnp.einsum("tij,tj->ti", r, p, precision=_HI) + t
 
     def xf_vec(v):
-        return jnp.einsum("tij,tj->ti", r, v)
+        return jnp.einsum("tij,tj->ti", r, v, precision=_HI)
 
     def xf_normal(nrm):
         # rigid/uniform-scale assumption: rotate (full inverse-transpose not
         # needed for the animation modes the reference uses — orbits are rigid)
-        out = jnp.einsum("tij,tj->ti", r, nrm)
+        out = jnp.einsum("tij,tj->ti", r, nrm, precision=_HI)
         return out / jnp.maximum(jnp.linalg.norm(out, axis=-1, keepdims=True), 1e-20)
 
     new_tris = dataclasses.replace(
@@ -123,7 +125,7 @@ def _invert_3x4(m: jnp.ndarray) -> jnp.ndarray:
         ],
         axis=-2,
     ) / jnp.where(jnp.abs(det[..., None]) < 1e-20, 1e-20, det[..., None])
-    inv_t = -jnp.einsum("nij,nj->ni", inv_r, t)
+    inv_t = -jnp.einsum("nij,nj->ni", inv_r, t, precision=_HI)
     return jnp.concatenate([inv_r, inv_t[..., None]], axis=-1)
 
 
@@ -140,11 +142,13 @@ def prev_position(inst: InstancedScene, m_curr: jnp.ndarray, m_prev: jnp.ndarray
         "nij,njk->nik",
         m_prev[iid][..., :3],
         _invert_3x4(m_curr)[iid][..., :3],
+        precision=_HI,
     )
     t_rel = m_prev[iid][..., 3] + jnp.einsum(
-        "nij,nj->ni", m_prev[iid][..., :3], _invert_3x4(m_curr)[iid][..., 3]
+        "nij,nj->ni", m_prev[iid][..., :3], _invert_3x4(m_curr)[iid][..., 3],
+        precision=_HI,
     )
-    x_prev = jnp.einsum("nij,nj->ni", w2w, x) + t_rel
+    x_prev = jnp.einsum("nij,nj->ni", w2w, x, precision=_HI) + t_rel
     return jnp.where((tri >= 0)[..., None], x_prev, x)
 
 
@@ -166,26 +170,13 @@ def refit_context(ctx, world_scene: Scene):
         return new_ctx
 
     if ctx.mode == "cluster":
-        from nrdsample_tpu.ops.cluster import SLAB_ROWS
+        from nrdsample_tpu.ops.cluster import SUPER_SIZE, component_planes
 
         cs = ctx.clusters
         c = cs.count
         p0b = tr.p0.reshape(c, CLUSTER_SIZE, 3)
         e1b = tr.e1.reshape(c, CLUSTER_SIZE, 3)
         e2b = tr.e2.reshape(c, CLUSTER_SIZE, 3)
-        from nrdsample_tpu.ops.cluster import SUPER_SIZE
-
-        # padded to a supercluster multiple like build_clusters (the
-        # streaming kernel DMAs SUPER_SIZE contiguous cluster slabs)
-        spad = (-c) % SUPER_SIZE
-        slab = jnp.zeros(((c + spad) * SLAB_ROWS, CLUSTER_SIZE), tr.p0.dtype)
-        for p, plane in enumerate(
-            [p0b[..., 0], p0b[..., 1], p0b[..., 2],
-             e1b[..., 0], e1b[..., 1], e1b[..., 2],
-             e2b[..., 0], e2b[..., 1], e2b[..., 2]]
-        ):
-            idx = (jnp.arange(c) * SLAB_ROWS + p)
-            slab = slab.at[idx].set(plane)
         p1b = p0b + e1b
         p2b = p0b + e2b
         # padded (degenerate) triangles are all-zero and would pollute bounds;
@@ -198,8 +189,6 @@ def refit_context(ctx, world_scene: Scene):
         hi = jnp.maximum(jnp.maximum(p0b, p1b), p2b)
         lo = jnp.where(degenerate, big, lo)
         hi = jnp.where(degenerate, -big, hi)
-        from nrdsample_tpu.ops.cluster import SUPER_SIZE
-
         bmin = jnp.min(lo, axis=1)
         bmax = jnp.max(hi, axis=1)
         spad = (-c) % SUPER_SIZE
@@ -214,7 +203,8 @@ def refit_context(ctx, world_scene: Scene):
             cs,
             bounds_min=bmin,
             bounds_max=bmax,
-            p0_b=p0b, e1_b=e1b, e2_b=e2b, slab=slab,
+            p0_b=p0b, e1_b=e1b, e2_b=e2b,
+            planes=component_planes(p0b, e1b, e2b),
             super_min=bmin_p.reshape(cs_n, SUPER_SIZE, 3).min(axis=1),
             super_max=bmax_p.reshape(cs_n, SUPER_SIZE, 3).max(axis=1),
         )

@@ -6,7 +6,7 @@ emissive, occlusion/metalness) from one bindless descriptor array
 driven by ray cones (``GetMaterialProps``, RaytracingShared.hlsli:424-555;
 mip logic 154-189).
 
-TPU-native design (SURVEY.md §7.1 "Bindless material textures" row): no
+Design (SURVEY.md §7.1 "Bindless material textures" row): no
 samplers and no per-material resolutions — all textures are resampled at build
 time into ONE stacked mip pyramid per channel-set, shape (M, H>>l, W>>l, C)
 per level l. A fetch is then a static-shape gather; trilinear filtering is 8

@@ -94,7 +94,7 @@ class TestTraversalMatchesDense:
 
 
 class TestClusterMatchesDense:
-    """ops/cluster.py (the TPU-shaped traversal) must agree with brute force."""
+    """ops/cluster.py (the clustered traversal) must agree with brute force."""
 
     def test_closest_hit_parity(self, soup):
         ctx, _ = traversal.build_context(soup.tris, mode="cluster")

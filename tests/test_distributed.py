@@ -1,5 +1,5 @@
 """Two-process jax.distributed bring-up over localhost (SURVEY.md §2.4(c):
-DCN multi-host orchestration). Spawns two REAL processes that rendezvous at a
+multi-host orchestration). Spawns two REAL processes that rendezvous at a
 gRPC coordinator, build the (hosts, chips) global mesh, broadcast a scene
 pytree from host 0, and run a global reduction across the host axis — the
 multi-process path parallel/distributed.py exists for."""

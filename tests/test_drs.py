@@ -1,4 +1,4 @@
-"""Dynamic resolution scaling (pipeline/drs.py) — the TPU-native gRectSize
+"""Dynamic resolution scaling (pipeline/drs.py) — the static-shape gRectSize
 analogue (NRDSample.cpp:2104-2119): bucketed static shapes, a host-side
 feedback controller, and history resampling across bucket switches."""
 

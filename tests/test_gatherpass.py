@@ -1,8 +1,7 @@
 """Staged gather-pass parity (denoise/gatherpass.py).
 
-The TPU production frame hoists every history reprojection into a dedicated
-gathers-only jit program (the only shape XLA:TPU's fast gather emitter
-reliably engages for — tools/profile_taccum14-23.py). These tests pin:
+The staged frame hoists every history reprojection into a dedicated
+gathers-only jit program. These tests pin:
   1. sample_bilinear_block == sample_bilinear (the robust tap form) texel-for-
      texel, including edge clamping and batched positions,
   2. the staged frame (make_staged_frame) == the monolithic jitted frame on

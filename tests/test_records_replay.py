@@ -55,7 +55,7 @@ def _cfg_from_render(render: dict) -> RenderConfig:
     for k, v in render.items():
         kw[k] = enums[k](v) if k in enums else v
     if kw.get("use_sharc"):
-        kw["sharc_capacity"] = 1 << 14  # full 4M table is a TPU-scale default
+        kw["sharc_capacity"] = 1 << 14  # the full 4M-entry table is the frame-scale default
     return RenderConfig(**kw)
 
 

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nrdsample_tpu.ops import sharc
 
@@ -76,6 +77,54 @@ class TestSharc:
         l_far = sharc.grid_level(far, CAM)
         assert float(l_far[0]) > float(l_near[0])
         assert float(sharc.voxel_size(l_far)[0]) > float(sharc.voxel_size(l_near)[0])
+
+
+def _update_sequential(keys, accum, last_seen, slot, csum, rad, mask, frame):
+    """numpy oracle of sharc.update: one sample after another, in index
+    order (SharcUpdateHit's claim, then accumulation against the final
+    keys)."""
+    keys, accum, last_seen = keys.copy(), accum.copy(), last_seen.copy()
+    cur = keys[slot].copy()
+    for i in range(len(slot)):
+        keys[slot[i]] = csum[i] if (mask[i] and cur[i] == 0) else cur[i]
+    owned = mask & (keys[slot] == csum)
+    for i in range(len(slot)):
+        if owned[i]:
+            accum[slot[i], :3] += rad[i]
+            accum[slot[i], 3] += 1.0
+        last_seen[slot[i]] = frame if owned[i] else last_seen[slot[i]]
+    return keys, accum, last_seen
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_update_claims_like_sequential_pass(seed):
+    """Many samples per slot (some masked off, some slots already owned):
+    the claimed keys and last_seen equal a one-sample-at-a-time pass exactly,
+    the accumulated radiance to rounding. The claim is a scatter-max of
+    sample indices and last_seen a scatter of one value, so no device's
+    scatter order can change either."""
+    rs = np.random.RandomState(seed)
+    cap, n = 64, 2048
+    state = sharc.SharcState.create(cap)
+    pos = jnp.asarray(rs.rand(n, 3).astype(np.float32) * 6.0 + 2.0)
+    nrm = jnp.asarray(rs.normal(size=(n, 3)).astype(np.float32))
+    rad = rs.rand(n, 3).astype(np.float32)
+    mask = rs.rand(n) < 0.7
+    # frame 0 owns some slots; frame 5 competes for the rest
+    state = sharc.update(state, pos[:200], nrm[:200], jnp.asarray(rad[:200]),
+                         CAM, 0, mask=jnp.asarray(mask[:200]))
+    slot, csum, _ = sharc.slot_and_checksum(pos, nrm, CAM, cap)
+    assert len(np.unique(np.asarray(slot))) < n // 8   # heavy duplication
+    got = sharc.update(state, pos, nrm, jnp.asarray(rad), CAM, 5,
+                       mask=jnp.asarray(mask))
+    want = _update_sequential(
+        np.asarray(state.keys), np.asarray(state.accum),
+        np.asarray(state.last_seen), np.asarray(slot), np.asarray(csum), rad,
+        mask, 5)
+    np.testing.assert_array_equal(np.asarray(got.keys), want[0])
+    np.testing.assert_allclose(np.asarray(got.accum), want[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(got.last_seen), want[2])
+    assert (want[0] != 0).sum() > 0 and (want[2] == 5).sum() > 0
 
 
 def test_lod_dither_blends_ring_boundary():

@@ -2,7 +2,7 @@
 
 Produces nrdsample_tpu/data/bluenoise_128.npy: a 128x128 float32 ranking in
 [0,1) with a blue (high-pass) spectrum, toroidally tileable. One-time tool;
-the runtime consumer is mathlib/bluenoise.py (the TPU-native stand-in for the
+the runtime consumer is mathlib/bluenoise.py (the in-repo stand-in for the
 reference's scrambling/ranking Sobol textures,
 /root/reference/Shaders/RaytracingShared.hlsli:699-723).
 """
